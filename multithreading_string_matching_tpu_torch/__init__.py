@@ -1,0 +1,38 @@
+"""multithreading_string_matching_tpu_torch — the packet-payload matcher on
+PyTorch and CUDA for NVIDIA Hopper.
+
+The port of ``multithreading_string_matching_tpu`` (JAX/Pallas on a TPU),
+which stays beside it as the reference.  Module names follow the JAX
+package's, so each module's counterpart is found by name:
+
+- ``io``    — pattern files, classic-pcap ingest, payload decode, synthetic
+              captures, the native C++ ingest bridge (host, numpy).
+- ``ops``   — the window matcher: staging plans, the plain PyTorch version,
+              and the hand-written CUDA kernels (``csrc/window_count.cu``).
+- ``utils`` — phase timers and the reference-compatible report.
+- ``api``   — :class:`Matcher`; ``cli`` — the ``serial`` and ``match``
+              commands.
+
+Counting semantics are variant A of BASELINE.md: every overlapping
+occurrence of every pattern (duplicates included, file order preserved)
+within exactly ``payload_len`` bytes of each valid payload.
+
+This package imports torch and numpy, never jax.
+"""
+
+__version__ = "0.1.0"
+
+from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
+from multithreading_string_matching_tpu_torch.io.pcap import read_pcap, open_capture
+from multithreading_string_matching_tpu_torch.io.decode import extract_payloads, PayloadBatch
+from multithreading_string_matching_tpu_torch.api import Matcher
+
+__all__ = [
+    "load_patterns",
+    "read_pcap",
+    "open_capture",
+    "extract_payloads",
+    "PayloadBatch",
+    "Matcher",
+    "__version__",
+]

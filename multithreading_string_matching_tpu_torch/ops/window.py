@@ -1,0 +1,215 @@
+"""Shifted-window word-compare matcher: the pattern program and its plain
+PyTorch version.
+
+Counterpart of ``multithreading_string_matching_tpu/ops/window.py``.  For
+short patterns the overlapping-occurrence count has a data-parallel form
+with no carried state::
+
+    w_k[n, i] = little-endian uint32 of payload[n, i+4k .. i+4k+3] (0 past L)
+    hit[u, n, i] = AND_k (w_k[n, i] & masks[u, k]) == words[u, k]
+                   and i + lens[u] <= lengths[n]
+    count[u]   = sum over (n, i) of hit[u, n, i]
+
+:func:`window_count` is that algebra in plain PyTorch on any device.  It is
+the port's ``'window'`` engine, the CPU path of the kernel wrappers
+(ops/cuda_window.py), and what the CUDA kernels are held against on the card.
+
+Pattern tables travel as int32 tensors holding the uint32 bit patterns
+(PyTorch's uint32 support is partial); the plain version widens them to
+int64 and masks back to 32 bits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+class WindowProgram(NamedTuple):
+    """Host-compiled pattern tables for the window matcher.
+
+    Patterns are packed into little-endian uint32 words with per-word byte
+    masks; words past a pattern's end have ``mask=0, word=0``, which always
+    compare equal.
+    """
+
+    pat_words: np.ndarray   # uint32[U, K] packed pattern words
+    pat_masks: np.ndarray   # uint32[U, K] per-word byte masks (0 past end)
+    pat_lens: np.ndarray    # int32[U]
+    dup_map: np.ndarray     # int32[P] original index -> unique index
+    max_len: int            # M (bytes)
+    unique_patterns: tuple  # the deduplicated pattern bytes, build order
+
+    @staticmethod
+    def build(patterns) -> "WindowProgram":
+        pats = [bytes(p) for p in patterns]
+        if not pats or any(len(p) == 0 for p in pats):
+            raise ValueError("patterns must be non-empty")
+        uniq, index, dup = [], {}, []
+        for p in pats:
+            if p not in index:
+                index[p] = len(uniq)
+                uniq.append(p)
+            dup.append(index[p])
+        m = max(len(p) for p in uniq)
+        k = -(-m // 4)
+        pw = np.zeros((len(uniq), k), dtype=np.uint32)
+        pm = np.zeros((len(uniq), k), dtype=np.uint32)
+        pl = np.zeros(len(uniq), dtype=np.int32)
+        for i, p in enumerate(uniq):
+            pl[i] = len(p)
+            padded = p + b"\x00" * (4 * k - len(p))
+            words = np.frombuffer(padded, dtype="<u4")
+            for w in range(k):
+                rem = len(p) - 4 * w
+                if rem <= 0:
+                    break
+                nb = min(4, rem)
+                mask = np.uint32(0xFFFFFFFF) if nb == 4 else np.uint32((1 << (8 * nb)) - 1)
+                pm[i, w] = mask
+                pw[i, w] = words[w] & mask
+        return WindowProgram(pw, pm, pl, np.asarray(dup, np.int32), m, tuple(uniq))
+
+    def tables(self, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(words int32[U, K], masks int32[U, K], lens int32[U])`` on
+        ``device``: the uint32 tables bit-cast to int32."""
+        return (
+            torch.from_numpy(np.ascontiguousarray(self.pat_words).view(np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(self.pat_masks).view(np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(self.pat_lens, dtype=np.int32)).to(device),
+        )
+
+
+def program_from_reference(
+    pat_words, pat_masks, pat_lens, dup_map, max_len: int,
+    unique_patterns: Sequence[bytes],
+) -> WindowProgram:
+    """The port's :class:`WindowProgram` from the JAX package's fields, given
+    as numpy arrays (the pattern tables are this system's parameters)."""
+    pw = np.asarray(pat_words, dtype=np.uint32)
+    pm = np.asarray(pat_masks, dtype=np.uint32)
+    pl = np.asarray(pat_lens, dtype=np.int32)
+    dm = np.asarray(dup_map, dtype=np.int32)
+    uniq = tuple(bytes(p) for p in unique_patterns)
+    if pw.ndim != 2 or pw.shape != pm.shape or pl.shape != (pw.shape[0],):
+        raise ValueError(
+            f"inconsistent table shapes: words {pw.shape}, masks {pm.shape}, "
+            f"lens {pl.shape}"
+        )
+    if len(uniq) != pw.shape[0]:
+        raise ValueError(f"{len(uniq)} unique patterns for {pw.shape[0]} table rows")
+    if dm.ndim != 1 or (dm.size and (dm.min() < 0 or dm.max() >= len(uniq))):
+        raise ValueError("dup_map indexes outside the unique patterns")
+    return WindowProgram(pw, pm, pl, dm, int(max_len), uniq)
+
+
+# Patterns are processed in groups of G so the broadcast [G, N, L] compare
+# chain stays a bounded intermediate.
+GROUP = 8
+
+
+def _word_views(payloads: torch.Tensor, K: int) -> torch.Tensor:
+    """int64[N, L + 4(K-1) + 1]: the little-endian 4-byte word starting at
+    every byte position, zero past the row's width ``L``."""
+    n, L = payloads.shape
+    x = torch.zeros((n, L + 4 * K + 4), dtype=torch.int64, device=payloads.device)
+    x[:, :L] = payloads
+    L4 = L + 4 * (K - 1) + 1
+    return (
+        x[:, 0:L4]
+        | (x[:, 1 : 1 + L4] << 8)
+        | (x[:, 2 : 2 + L4] << 16)
+        | (x[:, 3 : 3 + L4] << 24)
+    )
+
+
+def window_count(
+    words: torch.Tensor,
+    masks: torch.Tensor,
+    lens: torch.Tensor,
+    payloads: torch.Tensor,
+    lengths: torch.Tensor,
+    per_packet: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch window count on the payloads' device.
+
+    ``words/masks`` int32[U, K] (uint32 bit patterns), ``lens`` int32[U],
+    ``payloads`` uint8[N, L], ``lengths`` int32[N].  Returns int32[U] totals,
+    or int32[N, U] per-row counts with ``per_packet``, in build order.
+    """
+    n, L = payloads.shape
+    U, K = words.shape
+    dev = payloads.device
+    if n == 0 or U == 0:
+        shape = (n, U) if per_packet else (U,)
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+    w32 = _word_views(payloads, K)
+    pw = words.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
+    pm = masks.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
+    pl = lens.to(device=dev, dtype=torch.int64)
+    ln = lengths.to(device=dev, dtype=torch.int64)
+    pos = torch.arange(L, dtype=torch.int64, device=dev)
+    outs = []
+    for g0 in range(0, U, GROUP):
+        g1 = min(g0 + GROUP, U)
+        acc = None
+        for k in range(K):
+            wk = w32[:, 4 * k : 4 * k + L]                           # [N, L]
+            hit = (wk[None] & pm[g0:g1, k, None, None]) == pw[g0:g1, k, None, None]
+            acc = hit if acc is None else acc & hit
+        fit = pos[None, None, :] + pl[g0:g1, None, None] <= ln[None, :, None]
+        acc = acc & fit
+        if per_packet:
+            outs.append(acc.sum(dim=2, dtype=torch.int32).T)          # [N, g]
+        else:
+            outs.append(acc.sum(dim=(1, 2), dtype=torch.int32))       # [g]
+    return torch.cat(outs, dim=-1)
+
+
+def count_matches_window(
+    wp: WindowProgram,
+    payloads,
+    lengths,
+    *,
+    per_packet: bool = False,
+    expand_duplicates: bool = True,
+    device="cpu",
+) -> torch.Tensor:
+    """Counts via the plain window matcher (exact variant-A semantics)."""
+    words, masks, lens = wp.tables(device)
+    counts = window_count(
+        words, masks, lens,
+        torch.as_tensor(np.asarray(payloads, np.uint8), device=device),
+        torch.as_tensor(np.asarray(lengths, np.int32), device=device),
+        per_packet=per_packet,
+    )
+    if expand_duplicates:
+        counts = counts[..., torch.from_numpy(wp.dup_map).to(device=device, dtype=torch.long)]
+    return counts
+
+
+def count_matches_window_tiles(
+    wp: WindowProgram,
+    tiles,
+    *,
+    per_packet: bool = False,
+    expand_duplicates: bool = True,
+):
+    """Plain window counts over ``(payloads, lengths)`` tensor tiles on one
+    device: summed int32 totals, or one per-row matrix per tile."""
+    if not tiles:
+        if per_packet:
+            return []
+        n = len(wp.dup_map) if expand_duplicates else wp.pat_words.shape[0]
+        return torch.zeros((n,), dtype=torch.int32)
+    device = tiles[0][0].device
+    words, masks, lens = wp.tables(device)
+    outs = [window_count(words, masks, lens, p, l, per_packet) for p, l in tiles]
+    if expand_duplicates:
+        dm = torch.from_numpy(wp.dup_map).to(device=device, dtype=torch.long)
+        outs = [o[..., dm] for o in outs]
+    if per_packet:
+        return outs
+    return torch.stack(outs).sum(dim=0, dtype=torch.int32)
