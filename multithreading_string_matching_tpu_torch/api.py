@@ -6,10 +6,12 @@ occurrence of every pattern (duplicates reported independently, file order
 kept) in each payload's true byte range.
 
 The device is explicit.  ``device="cuda"`` (the default) stages payload
-tiles on the card and counts them with the hand-written kernels of
-ops/cuda_window.py; it raises when CUDA is missing or the kernels do not
-build, and never carries on on the CPU.  ``device="cpu"`` runs the same
-path through the kernels' plain PyTorch versions.
+tiles on the card and counts them with the hand-written kernels: the window
+kernels of ops/cuda_window.py for small pattern sets, the table and filter
+kernels of ops/cuda_table.py for large ones, chosen by the JAX package's
+rule.  It raises when CUDA is missing or the kernels do not build, and never
+carries on on the CPU.  ``device="cpu"`` runs the same path through the
+kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from multithreading_string_matching_tpu_torch.ops.bucketing import (
     pack_rows,
     quantize_rows,
 )
+from multithreading_string_matching_tpu_torch.ops.cuda_table import CudaTableMatcher
 from multithreading_string_matching_tpu_torch.ops.cuda_window import CudaWindowMatcher
 from multithreading_string_matching_tpu_torch.ops.window import (
     WindowProgram,
@@ -66,8 +69,13 @@ class Matcher:
 
     Engines, with the JAX package's vocabulary:
 
-    - ``'pallas'`` (default): the hand-written window-count kernels
-      (ops/cuda_window.py); on ``device="cpu"`` their plain versions.
+    - ``'pallas'`` (default): the hand-written kernels, on
+      ``device="cpu"`` their plain versions.  Sets of more than
+      ``PALLAS_TABLE_WORDS`` pattern words (or of more than
+      ``PALLAS_TABLE_WORDS_UNIFORM`` words in one word-count class) take the
+      table kernels (ops/cuda_table.py), with the filter unless
+      ``MSM_PALLAS_FILTER=0``; smaller sets take the window kernels
+      (ops/cuda_window.py).  ``MSM_PALLAS_TABLE=1``/``0`` forces either.
     - ``'window'``: the plain PyTorch window count (ops/window.py) on the
       matcher's device.
     - ``'ac'``, ``'kmp'``: not yet ported (ROADMAP Queue 1 item 6,
@@ -120,11 +128,42 @@ class Matcher:
         return self._window
 
     @property
-    def kernels(self) -> CudaWindowMatcher:
-        """The window kernels bound to this matcher's tables and device."""
+    def kernels(self) -> Union[CudaWindowMatcher, CudaTableMatcher]:
+        """The kernels bound to this matcher's tables and device: the table
+        kernels for large sets, the window kernels otherwise."""
         if self._kernels is None:
-            self._kernels = CudaWindowMatcher(self.window, self.device)
+            if self._pallas_table_selected(self._pattern_stats()[2]):
+                # prepare() zero-fills rows past their lengths, as the JAX
+                # Matcher assumes; the kernels apply the fit mask either way.
+                self._kernels = CudaTableMatcher(
+                    self.window, self.device, filtered=self._pallas_filter_selected(),
+                    assume_zero_padded=True,
+                )
+            else:
+                self._kernels = CudaWindowMatcher(self.window, self.device)
         return self._kernels
+
+    # The JAX package's thresholds (its api.py), measured on a TPU and kept
+    # as placeholders: more pattern words than this take the table kernels,
+    # and so do sets of one word-count class above the uniform threshold.
+    PALLAS_TABLE_WORDS = 512
+    PALLAS_TABLE_WORDS_UNIFORM = 128
+
+    def _pallas_table_selected(self, total_words: int) -> bool:
+        """The one place that decides window vs table kernels (``kernels``
+        and ``explain()`` both ask it).  ``MSM_PALLAS_TABLE`` forces it:
+        anything but "0" or "" selects the table kernels."""
+        force = os.environ.get("MSM_PALLAS_TABLE")
+        if force is not None:
+            return force not in ("0", "")
+        if total_words > self.PALLAS_TABLE_WORDS:
+            return True
+        kset = {-(-len(p) // 4) for p in dict.fromkeys(self._match_patterns)}
+        return len(kset) == 1 and total_words > self.PALLAS_TABLE_WORDS_UNIFORM
+
+    def _pallas_filter_selected(self) -> bool:
+        """The filter is on for the table kernels unless ``MSM_PALLAS_FILTER=0``."""
+        return os.environ.get("MSM_PALLAS_FILTER", "") not in ("0",)
 
     def _pattern_stats(self):
         """(unique_patterns, max_len, total_words) from the pattern list."""
@@ -176,17 +215,36 @@ class Matcher:
             "device": str(self.device),
         }
         if eng == "pallas":
-            out["pallas_kernel"] = "cuda-window"
+            if self._pallas_table_selected(total_words):
+                out["pallas_kernel"] = (
+                    "table+filter" if self._pallas_filter_selected() else "table"
+                )
+            else:
+                out["pallas_kernel"] = "cuda-window"
         return out
 
     def swap_patterns(self, new_patterns) -> bool:
         """Replace the pattern set in place (the rule-push path).
 
-        The kernels take their tables as call arguments, so the swap builds
-        new tables and reuses the built kernel library: returns True.
+        Every kernel takes its tables as call arguments, so no swap rebuilds
+        a kernel.  With the table kernels already bound, the JAX package's
+        contract holds: ``swap_tables`` keeps them when the class geometry
+        is the same (True) and they are dropped otherwise (False).  Else the
+        answer is False where the new set takes the table kernels (none was
+        kept, as in the JAX package) and True where it takes the window
+        kernels, whose tables are rebuilt with nothing lost.  Counts are
+        right either way.
         """
+        old = self._kernels
         self._set_patterns(new_patterns)
-        return True
+        if isinstance(old, CudaTableMatcher):
+            try:
+                old.swap_tables(self.window)
+            except ValueError:
+                return False
+            self._kernels = old
+            return True
+        return not self._pallas_table_selected(self._pattern_stats()[2])
 
     def _has_nul(self) -> bool:
         return any(0 in p for p in self.window.unique_patterns)

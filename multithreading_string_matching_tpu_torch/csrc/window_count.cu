@@ -2,13 +2,15 @@
 //
 // Replaces the TPU kernel multithreading_string_matching_tpu/ops/
 // pallas_window.py::_make_kernel (with window_views), as launched by
-// PallasWindowMatcher._one_tile (totals, int32[U]) and
-// PallasWindowMatcher._one_tile_rows (per_row=True, int32[n, U]).
+// PallasWindowMatcher._one_tile (totals, int32[U]),
+// PallasWindowMatcher._one_tile_repeated (totals with a repeats grid axis)
+// and PallasWindowMatcher._one_tile_rows (per_row=True, int32[n, U]).
 //
 // What it computes, for every row r, position i < L and pattern u:
 //   w_k      = little-endian uint32 of payload[r, i+4k .. i+4k+3], 0 past L
 //   hit      = AND_k (w_k & masks[u,k]) == words[u,k]  and  i + lens[u] <= lengths[r]
-//   totals   : out[u]    += hit      (window_count_totals)
+//   totals   : out[u]    += reps * hit   (window_count_totals; the grid's
+//              y axis runs the whole tile reps times, each re-reading it)
 //   per row  : out[r, u] += hit      (window_count_rows)
 // Outputs are in build (unique-pattern) order, as the TPU kernel's were.
 //
@@ -137,17 +139,18 @@ window_count_kernel(const uint8_t* __restrict__ payload,
 template <bool kPerRow>
 int launch(const void* payload, const void* lengths, const void* words,
            const void* masks, const void* lens, void* out, long long n,
-           long long L, int U, int K, int device, void* stream) {
+           long long L, int U, int K, int reps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0 || L <= 0 || U <= 0) return 0;
-  if (K <= 0 || K > kTableWords) return static_cast<int>(cudaErrorInvalidValue);
+  if (K <= 0 || K > kTableWords || reps <= 0 || reps > 65535 || (kPerRow && reps != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int chunk = U < kTableWords / K ? U : kTableWords / K;
   const int stage_words = kSeg / 4 + K + 1;  // covers byte kSeg - 1 + 4K + 3
   const size_t smem =
       static_cast<size_t>(2 * chunk * K + 2 * chunk + stage_words) * sizeof(uint32_t);
   const int blocks = static_cast<int>(n < kMaxBlocks ? n : kMaxBlocks);
-  window_count_kernel<kPerRow><<<blocks, kThreads, smem,
+  window_count_kernel<kPerRow><<<dim3(blocks, reps), kThreads, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(payload), static_cast<const int32_t*>(lengths),
       static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(masks),
@@ -160,14 +163,15 @@ int launch(const void* payload, const void* lengths, const void* words,
 
 extern "C" {
 
-// Totals: adds into out int32[U], which the caller has zeroed.
+// Totals: adds reps times the tile's counts into out int32[U], which the
+// caller has zeroed.
 int msm_window_count_totals(const void* payload, const void* lengths,
                             const void* words, const void* masks,
                             const void* lens, void* out, long long n,
-                            long long L, int U, int K, int device,
+                            long long L, int U, int K, int reps, int device,
                             void* stream) {
   return launch<false>(payload, lengths, words, masks, lens, out, n, L, U, K,
-                       device, stream);
+                       reps, device, stream);
 }
 
 // Per row: writes out int32[n, U].
@@ -177,7 +181,7 @@ int msm_window_count_rows(const void* payload, const void* lengths,
                           long long L, int U, int K, int device,
                           void* stream) {
   return launch<true>(payload, lengths, words, masks, lens, out, n, L, U, K,
-                      device, stream);
+                      1, device, stream);
 }
 
 const char* msm_cuda_error_string(int code) {

@@ -1,12 +1,13 @@
 """Build native code from the checkout's sources into the package's
 git-ignored ``build/`` directory, and load it with ctypes.
 
-Two libraries are built here, each on first use:
+Native libraries are built here, each on first use:
 
 - the C++ pcap ingest (``multithreading_string_matching_tpu/native/
   pcap_ingest.cpp``, read by path, never imported) with ``g++``;
-- the Hopper kernels (``csrc/*.cu``) with ``nvcc`` for ``sm_90a``, a plain C
-  interface bound with ctypes.
+- the Hopper kernels (``csrc/*.cu``) with ``nvcc`` for ``sm_90a``, one
+  library per source, each a plain C interface bound with ctypes
+  (:class:`KernelLibrary`).
 
 Every build compiles to a per-process temporary name and renames it into
 place, so concurrent processes (pytest workers, a CLI beside a benchmark)
@@ -16,12 +17,14 @@ library.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG_DIR / "build"
@@ -98,3 +101,48 @@ def build_cuda(name: str, sources: Sequence[pathlib.Path], *,
     t0 = time.perf_counter()
     log = compile_to([find_nvcc(), *flags], sources, out)
     return out, time.perf_counter() - t0, log
+
+
+class KernelLibrary:
+    """One CUDA library, built from ``sources`` on first use and loaded with
+    ctypes.  ``signatures`` maps each C entry point to its argument types;
+    every entry point returns a CUDA error code, which :meth:`call` turns
+    into a ``RuntimeError``.  ``build_info`` records the library path, the
+    compile seconds and the compiler output of this process's build."""
+
+    def __init__(self, name: str, sources: Sequence[pathlib.Path],
+                 signatures: Dict[str, list]):
+        self.name = name
+        self.sources = list(sources)
+        self.signatures = signatures
+        self.build_info: Dict[str, object] = {}
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def load(self, verbose_ptxas: bool = False) -> ctypes.CDLL:
+        """Build (when stale) and load the library; raises on failure."""
+        with self._lock:
+            if self._lib is None:
+                path, seconds, log = build_cuda(
+                    self.name, self.sources, verbose_ptxas=verbose_ptxas
+                )
+                lib = ctypes.CDLL(str(path))
+                for entry, argtypes in self.signatures.items():
+                    fn = getattr(lib, entry)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = argtypes
+                lib.msm_cuda_error_string.restype = ctypes.c_char_p
+                lib.msm_cuda_error_string.argtypes = [ctypes.c_int]
+                self.build_info.update(path=str(path), seconds=seconds, log=log)
+                self._lib = lib
+            return self._lib
+
+    def call(self, entry: str, *args) -> None:
+        """Launch ``entry``; raise with the CUDA error when it is refused."""
+        lib = self.load()
+        rc = getattr(lib, entry)(*args)
+        if rc != 0:
+            raise RuntimeError(
+                f"{entry} launch failed: CUDA error {rc} "
+                f"({lib.msm_cuda_error_string(rc).decode()})"
+            )

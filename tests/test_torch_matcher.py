@@ -162,7 +162,7 @@ def test_unported_engines_raise(batch, engine):
         _cpu(engine=engine).count(batch.payloads, batch.lengths)
 
 
-def test_explain_names_the_cuda_kernel():
+def test_explain_names_the_cuda_kernel(monkeypatch):
     ex = _cpu().explain()
     assert ex["pallas_kernel"] == "cuda-window"
     assert ex["engine_resolved"] == "pallas" and ex["device"] == "cpu"
@@ -172,6 +172,16 @@ def test_explain_names_the_cuda_kernel():
         assert ex[key] == jx[key], key
     with pytest.raises(ValueError):
         _cpu(engine="bogus")
+    # Large sets: the table kernels, named as the JAX package names them
+    # (its CPU path reports its Pallas kernel only in interpret mode).
+    monkeypatch.setenv("MSM_PALLAS_INTERPRET", "1")
+    monkeypatch.delenv("MSM_PALLAS_TABLE", raising=False)
+    large = [b"rs%06d" % i for i in range(300)]
+    for filt, name in (("1", "table+filter"), ("0", "table")):
+        monkeypatch.setenv("MSM_PALLAS_FILTER", filt)
+        assert _cpu(large).explain()["pallas_kernel"] == name
+        assert JaxMatcher(large).explain()["pallas_kernel"] == name
+    assert JaxMatcher(PATTERNS).explain()["pallas_kernel"] == "unrolled"
 
 
 def test_count_prepared_nonblocking_returns_a_tensor(batch):
