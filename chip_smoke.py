@@ -35,6 +35,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    rows, a pure-Python count.  Times: table+filter, table and window kernels
    on the resident tiles, the plain versions, the bench's 3,072 ``rs%06d``
    set over the phase-3 capture, and ``serial`` with the large file.
+6. The flow path: a seeded capture of 768 TCP flows x 131,072 stream bytes
+   (~100.7 MB) in 1,400-byte segments, interleaved, with stand-in patterns
+   planted at random offsets and across segment boundaries, streamed
+   through ``FlowStreamMatcher`` (the window engine, 8,192-packet slices)
+   with the launch counters reset just before: ``window_count_halo`` must
+   launch in every scan round and no other kernel.  The stream's counts
+   equal one-shot ``extract_flows`` + ``Matcher.count`` on the card, the
+   plain version's stream on the card and a pure-Python count over every
+   reassembled stream; the per-packet count is lower.  Also a reordered,
+   retransmitting capture, a NUL + nocase case, a forced chunk-loop round
+   and a forced drain, and the halo kernel against its plain version on
+   random lanes.  Times: stream rate (median of 3), where a stream's wall
+   time goes, the halo kernel on the largest round tile against the plain
+   version, and the ``match --flows [--stream]`` wall times.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -246,6 +260,324 @@ def kernel_cases(rng):
     return cases
 
 
+FLOWS = 768
+FLOW_BYTES = 131_072
+FLOW_SEGMENT = 1400
+FLOW_SLICE = 8192
+STREAM_RUNS = 3
+
+
+def flow_capture(patterns, seed: int) -> pathlib.Path:
+    """The flow-rate capture at 4x ``bench/flow_rate.py``'s flow count:
+    ``FLOWS`` flows of ``FLOW_BYTES`` printable bytes, each planted with 8
+    patterns at random offsets and 2 across a segment boundary, cut into
+    ``FLOW_SEGMENT``-byte segments and interleaved; made once per machine."""
+    from multithreading_string_matching_tpu_torch.io.synth import synth_tcp_flows_pcap
+
+    h = hashlib.sha256(b"\x00".join(patterns)).hexdigest()[:12]
+    cap = pathlib.Path(tempfile.gettempdir()) / f"msm_torch_flows_{h}_{seed}_{FLOWS}.pcap"
+    if cap.exists():
+        return cap
+    rng = np.random.default_rng(seed)
+    flows = []
+    for i in range(FLOWS):
+        pay = rng.integers(0x20, 0x7F, size=FLOW_BYTES, dtype=np.uint8)
+        for _ in range(8):
+            p = patterns[int(rng.integers(0, len(patterns)))]
+            o = int(rng.integers(0, FLOW_BYTES - len(p)))
+            pay[o : o + len(p)] = np.frombuffer(p, np.uint8)
+        for _ in range(2):
+            p = patterns[int(rng.integers(0, len(patterns)))]
+            edge = FLOW_SEGMENT * int(rng.integers(1, FLOW_BYTES // FLOW_SEGMENT))
+            o = edge - int(rng.integers(1, len(p)))
+            pay[o : o + len(p)] = np.frombuffer(p, np.uint8)
+        flows.append(((f"10.{i // 250}.{i % 250}.1", "10.255.0.1", 1024 + i, 80), pay.tobytes(),
+                      [FLOW_SEGMENT] * (-(-FLOW_BYTES // FLOW_SEGMENT))))
+    tmp = cap.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    synth_tcp_flows_pcap(tmp, flows, interleave_seed=1)
+    os.replace(tmp, cap)
+    print(f"synth: {cap} ({cap.stat().st_size} bytes) in {time.perf_counter() - t0:.3f} s")
+    return cap
+
+
+def oracle_counts(streams, patterns):
+    return np.array([sum(overlapping(s, p) for s in streams) for p in patterns], np.int64)
+
+
+def halo_lanes(pats, seed: int, n: int, C: int, alphabet: bytes):
+    """Random ``[halo | bytes]`` rows with random real fills, random valid
+    lengths (every 7th 0) and planted patterns, not zero past their length."""
+    from multithreading_string_matching_tpu_torch.ops.window import WindowProgram
+
+    wp = WindowProgram.build(pats)
+    H = max(int(wp.max_len) - 1, 1)
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(alphabet, np.uint8)
+    x = letters[rng.integers(0, len(letters), size=(n, H + C))]
+    for r in range(n):
+        pat = pats[r % len(pats)]
+        for _ in range(3):
+            o = int(rng.integers(0, H + C - len(pat) + 1))
+            x[r, o : o + len(pat)] = np.frombuffer(pat, np.uint8)
+    eff = np.minimum(rng.integers(0, C + 1, size=n) + H, H + C).astype(np.int32)
+    eff[::7] = 0
+    ms = (H - rng.integers(0, H + 1, size=n)).astype(np.int32)
+    return wp, H, x, eff, ms
+
+
+def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
+    """Phase 6; returns the kernel record entry of ``window_count_halo``."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch import cli
+    from multithreading_string_matching_tpu_torch.api import Matcher
+    from multithreading_string_matching_tpu_torch.io.flows import extract_flows
+    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap, slice_pcap
+    from multithreading_string_matching_tpu_torch.io.synth import synth_tcp_flows_pcap
+    from multithreading_string_matching_tpu_torch.ops.window import window_count_halo_plain
+    from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
+
+    max_err = 0
+
+    def compare(got, want, name):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"window_count_halo {name}: shape {tuple(got.shape)}")
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        max_err = max(max_err, err)
+        check(err == 0, f"window_count_halo disagrees with the plain version on {name}")
+
+    # -- the halo kernel against its plain version ------------------------
+    rs = [b"rs%06d" % i for i in range(RULES)]
+    for name, pats, seed, n, C, alphabet in (
+        ("random-fills", [b"ab", b"bca", b"aaaa", b"abcab"], 61, 256, 64, b"abc"),
+        ("nul", [b"a\x00b", b"\x00c", b"ca", b"\x00\x00\x01"], 62, 256, 96, b"abc\x00\x01"),
+        ("rows-wider-than-a-segment", [b"ab", b"abcdefgh", b"b"], 63, 16, 5000, b"abcdefgh"),
+        ("standin-sub-lanes", patterns, 64, 1024, 2048, ALNUM + b" /:."),
+        ("rs3072", rs, 65, 128, 256, b"rs0123"),
+    ):
+        wp, H, x, eff, ms = halo_lanes(pats, seed, n, C, alphabet)
+        tabs = wp.tables(dev)
+        tx, te, tm = (torch.from_numpy(a).to(dev) for a in (x, eff, ms))
+        want = window_count_halo_plain(tx, te, tm, H, tabs)
+        compare(cw.window_count_halo(tx, te, tm, *tabs, H), want, name)
+        print(f"halo kernel check {name}: U={len(wp.unique_patterns)} R={n} W={H + C} "
+              f"totals={int(want.sum())}: equal")
+
+    # -- the main flow path ----------------------------------------------
+    cap = flow_capture(patterns, SEED)
+    pcap = read_pcap(cap)
+    slices = [slice_pcap(pcap, s, s + FLOW_SLICE, copy=False)
+              for s in range(0, pcap.num_packets, FLOW_SLICE)]
+    matcher = Matcher(patterns, device=dev)
+
+    def stream(m, **kw):
+        fs = FlowStreamMatcher(m, "tcp", engine="window", **kw)
+        t0 = time.perf_counter()
+        for sl in slices:
+            fs.feed_pcap_slice(sl)
+        fs.flush()
+        counts = fs.counts()
+        return fs, counts, time.perf_counter() - t0
+
+    stream(matcher)  # builds nothing new; warms the allocator and the tables
+    largest = {}
+    kern = matcher.halo_kernels
+    orig_halo = kern.count_tile_halo
+
+    def recording(x, eff, ms):
+        if x.numel() > largest.get("numel", 0):
+            largest.update(numel=x.numel(), args=(x, eff, ms))
+        return orig_halo(x, eff, ms)
+
+    kern.count_tile_halo = recording
+    torch.cuda.synchronize()
+    reset_launches(cw, ct)
+    fs, counts, wall = stream(matcher)
+    launches = {**cw.LAUNCHES, **ct.LAUNCHES}
+    kern.count_tile_halo = orig_halo
+    rounds = fs._round
+    print(f"flow path: {pcap.num_packets} packets, {fs.flows_seen} flows, {fs.packets_seen} "
+          f"segments, {fs.bytes_seen} stream bytes, {rounds} rounds, {wall:.3f} s, "
+          f"launches {launches}, {int(counts.sum())} matches")
+    check(launches["window_count_halo"] >= rounds > 0,
+          f"window_count_halo launched {launches['window_count_halo']} times in {rounds} rounds")
+    check(not any(v for k, v in launches.items() if k != "window_count_halo"),
+          f"the flow stream launched other kernels {launches}")
+    check(counts.shape == (len(patterns),) and int(counts.sum()) > 0, "flow counts")
+
+    fb = extract_flows(pcap, "tcp")
+    check(fb.num_flows == FLOWS and fb.total_payload_bytes == fs.bytes_seen, "flow batch")
+    oneshot = matcher.count(fb.payloads, fb.lengths)
+    _, plain_counts, plain_wall = stream(Matcher(patterns, engine="window", device=dev))
+    streams = [fb.stream(f) for f in range(fb.num_flows)]
+    t0 = time.perf_counter()
+    want = oracle_counts(streams, patterns)
+    py_s = time.perf_counter() - t0
+    per_packet = matcher.count_pcap(cap, "tcp")
+    check(np.array_equal(counts, oneshot), "flow stream differs from one-shot extract_flows + count")
+    check(np.array_equal(counts, plain_counts), "flow stream differs from the plain version's stream")
+    check(np.array_equal(counts, want), "flow stream differs from the pure-Python count")
+    check(int(per_packet.sum()) < int(counts.sum()),
+          "the per-packet count is not below the reassembled count")
+    print(f"flow path: stream = one-shot = plain stream ({plain_wall:.3f} s) = pure Python "
+          f"({py_s:.3f} s): {int(counts.sum())} matches; per packet {int(per_packet.sum())}")
+
+    # -- reorder, NUL + nocase, the chunk loop, a forced drain ------------
+    rng = np.random.default_rng(SEED + 6)
+    rflows = []
+    for i in range(64):
+        pay = rng.integers(0x20, 0x7F, size=32 << 10, dtype=np.uint8)
+        for _ in range(10):
+            p = patterns[int(rng.integers(0, len(patterns)))]
+            o = int(rng.integers(0, len(pay) - len(p)))
+            pay[o : o + len(p)] = np.frombuffer(p, np.uint8)
+        rflows.append(((f"10.77.{i}.1", "10.77.255.1", 2000 + i, 80), pay.tobytes()))
+    rcap = pathlib.Path(tempfile.gettempdir()) / f"msm_torch_reorder_{os.getpid()}.pcap"
+    synth_tcp_flows_pcap(rcap, rflows, segment_len=FLOW_SEGMENT, interleave_seed=2,
+                         reorder_seed=3, retransmit_rate=0.05, overlap_rate=0.05, seed=4)
+    rp = read_pcap(rcap)
+    rcap.unlink()
+    # The reorder window is one scan round: the stream holds the whole
+    # capture for one round.
+    rfs = FlowStreamMatcher(matcher, "tcp", engine="window", reorder=True, scan_bytes=1 << 40)
+    before = cw.LAUNCHES["window_count_halo"]
+    for s in range(0, rp.num_packets, 1000):
+        rfs.feed_pcap_slice(slice_pcap(rp, s, s + 1000, copy=False))
+    rfs.flush()
+    rcounts = rfs.counts()
+    rfb = extract_flows(rp, "tcp", reorder=True)
+    rwant = oracle_counts([p for _, p in rflows], patterns)
+    check(cw.LAUNCHES["window_count_halo"] > before, "the reorder stream launched no halo kernel")
+    check(np.array_equal(rcounts, matcher.count(rfb.payloads, rfb.lengths))
+          and np.array_equal(rcounts, rwant), "reorder stream differs")
+    print(f"reorder: {rp.num_packets} packets, {int(rcounts.sum())} matches = "
+          "extract_flows(reorder=True) + count = pure Python over the true streams")
+
+    key_a, key_b = ("10.0.0.1", "10.0.0.2", 1111, 80), ("10.0.0.3", "10.0.0.2", 2222, 80)
+    p1 = pathlib.Path(tempfile.gettempdir()) / f"msm_torch_nul1_{os.getpid()}.pcap"
+    p2 = p1.with_name(f"msm_torch_nul2_{os.getpid()}.pcap")
+    synth_tcp_flows_pcap(p1, [(key_a, b"xxE\x00", [4])])
+    synth_tcp_flows_pcap(p2, [(key_a, b"Fyy", [3]), (key_b, b"qAb", [3])])
+    nfs = FlowStreamMatcher(Matcher([b"E\x00F", b"ab"], case_insensitive=True, device=dev),
+                            "tcp", engine="window", scan_bytes=1, width=4, min_lanes=4)
+    before = cw.LAUNCHES["window_count_halo"]
+    for pth in (p1, p2):
+        nfs.feed_pcap_slice(read_pcap(pth))
+        nfs.flush()
+        pth.unlink()
+    check(nfs.counts().tolist() == [1, 1], f"NUL + nocase flow counts {nfs.counts().tolist()}")
+    check(cw.LAUNCHES["window_count_halo"] >= before + 2, "the NUL + nocase rounds launched no kernel")
+    print("NUL + nocase across rounds: [1, 1]")
+
+    head = slices[:2]
+    ref_fs = FlowStreamMatcher(matcher, "tcp", engine="window")
+    for sl in head:
+        ref_fs.feed_pcap_slice(sl)
+    ref_fs.flush()
+    old_budget = FlowStreamMatcher.ROUND_BUDGET_BYTES
+    FlowStreamMatcher.ROUND_BUDGET_BYTES = 1
+    loop_fs = FlowStreamMatcher(matcher, "tcp", engine="window")
+    before = cw.LAUNCHES["window_count_halo"]
+    for sl in head:
+        loop_fs.feed_pcap_slice(sl)
+    loop_fs.flush()
+    FlowStreamMatcher.ROUND_BUDGET_BYTES = old_budget
+    loop_launches = cw.LAUNCHES["window_count_halo"] - before
+    drain_fs = FlowStreamMatcher(matcher, "tcp", engine="window")
+    acc = drain_fs._acc_device
+
+    def acc_and_drain(c, *, positions):
+        acc(c, positions=positions)
+        drain_fs._drain_device()
+
+    drain_fs._acc_device = acc_and_drain
+    before = cw.LAUNCHES["window_count_halo"]
+    for sl in head:
+        drain_fs.feed_pcap_slice(sl)
+    drain_fs.flush()
+    check(cw.LAUNCHES["window_count_halo"] - before >= drain_fs._round > 0,
+          "the drained stream did not launch the halo kernel every round")
+    check(loop_launches > loop_fs._round, f"the chunk loop launched {loop_launches} kernels")
+    check(np.array_equal(loop_fs.counts(), ref_fs.counts())
+          and np.array_equal(drain_fs.counts(), ref_fs.counts()),
+          "chunk-loop or drained counts differ")
+    print(f"chunk loop ({loop_launches} launches in {loop_fs._round} rounds) and forced drain: "
+          f"{int(ref_fs.counts().sum())} matches, equal")
+
+    # -- times --------------------------------------------------------------
+    walls = []
+    for _ in range(STREAM_RUNS):
+        f_, c_, w_ = stream(matcher)
+        check(np.array_equal(c_, counts), "a timed stream run differs")
+        walls.append(w_)
+    med = statistics.median(walls)
+    print(f"flow stream: median {med:.4f} s of {STREAM_RUNS} "
+          f"({', '.join(f'{w:.4f}' for w in walls)}) = {fs.bytes_seen / med:.6e} stream B/s, "
+          f"{rounds} rounds [{card}]")
+
+    # Where a stream's wall time goes: the scan rounds (synchronised at
+    # their end) against the rest, which is the host feed.
+    split = {"round": 0.0, "scan": 0.0}
+    tfs = FlowStreamMatcher(matcher, "tcp", engine="window")
+    scan_impl, window_round = tfs._scan_impl, tfs._window_round
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    tfs._scan_impl, tfs._window_round = timed("scan", scan_impl), timed("round", window_round)
+    t0 = time.perf_counter()
+    for sl in slices:
+        tfs.feed_pcap_slice(sl)
+    tfs.flush()
+    tfs.counts()
+    total = time.perf_counter() - t0
+    print(f"flow stream split: total {total:.4f} s = feed {total - split['scan']:.4f} s "
+          f"+ scan {split['scan']:.4f} s (round buffers {split['scan'] - split['round']:.4f} s, "
+          f"sub-lane re-layout + copy + kernel {split['round']:.4f} s) [{card}]")
+
+    x, eff, ms = largest["args"]
+    words, masks, lens = kern.words, kern.masks, kern.lens
+    H = kern.halo_width
+    want_tile = window_count_halo_plain(x, eff, ms, H, (words, masks, lens))
+    compare(cw.window_count_halo(x, eff, ms, words, masks, lens, H), want_tile, "largest round tile")
+    halo_ms = cuda_ms(lambda: cw.window_count_halo(x, eff, ms, words, masks, lens, H), SCAN_RUNS)
+    plain_ms = cuda_ms(lambda: window_count_halo_plain(x, eff, ms, H, (words, masks, lens)),
+                       PLAIN_RUNS)
+    tile_bytes = int(eff.clamp(min=0).sum())
+    print(f"halo kernel, largest round tile {tuple(x.shape)} ({tile_bytes} valid bytes incl. "
+          f"halos): {halo_ms:.4f} ms = {tile_bytes / halo_ms * 1e3:.6e} B/s (median of "
+          f"{SCAN_RUNS}); plain {plain_ms:.4f} ms (median of {PLAIN_RUNS}) [{card}]")
+
+    for flags in (["--flows", "--stream"], ["--flows"]):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["match", "--pcap", str(cap), "--patterns", str(pat_file), "--mode",
+                           "tcp", "--json", *flags])
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"match {' '.join(flags)} exited {rc}")
+        blob = json.loads(out.getvalue().splitlines()[-1])
+        check(blob["counts"] == counts.tolist() and blob["flows"] == FLOWS,
+              f"match {' '.join(flags)} counts differ")
+        print(f"match {' '.join(flags)} --json: {cli_s:.4f} s wall, phases {blob['phases']}, "
+              f"execution {blob['execution'].get('flow_rounds', blob['execution'].get('pallas_kernel'))} "
+              f"[{card}]")
+
+    return {"name": "window_count_halo", "route": "cuda",
+            "source": "multithreading_string_matching_tpu_torch/csrc/window_count.cu",
+            "replaces": "multithreading_string_matching_tpu/ops/pallas_window.py:473",
+            "launches": launches["window_count_halo"], "max_abs_err": max_err,
+            "ms": halo_ms, "plain_ms": plain_ms}
+
+
 def main() -> int:
     import torch
 
@@ -360,7 +692,8 @@ def run(dev) -> int:
           f"{batch.num_packets} packets, {int(batch.valid.sum())} valid, "
           f"{batch.total_payload_bytes} payload bytes, {int(counts.sum())} matches")
     for k, v in launches.items():
-        check(v > 0, f"{k} was not launched by the main path")
+        if k != "window_count_halo":  # the flow path's kernel: phase 6
+            check(v > 0, f"{k} was not launched by the main path")
     check(counts.shape == (len(patterns),) and counts.dtype == np.int32,
           f"counts shape/dtype {counts.shape} {counts.dtype}")
     check(per_row.shape == (head_p.shape[0], len(patterns)), f"per-row shape {per_row.shape}")
@@ -560,6 +893,9 @@ def run(dev) -> int:
     serial_wall(cli, cap2, rules_file, rules, big_counts, card)
     rules_file.unlink()
 
+    # -- 6. the flow path ---------------------------------------------------
+    halo_record = flow_phase(dev, card, patterns, pat_file, cw, ct)
+
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
     ref = "multithreading_string_matching_tpu/ops/pallas_window.py"
     tsrc = "multithreading_string_matching_tpu_torch/csrc/table_count.cu"
@@ -591,6 +927,7 @@ def run(dev) -> int:
          "replaces": f"{tref}:704", "launches": filt_launches["filter_count_rows"],
          "max_abs_err": max_err["filter_count_rows"], "ms": filt_rows_ms,
          "plain_ms": plain_rows_ms["filter"]},
+        halo_record,
     ]}
     print(card)
     print(json.dumps(record))

@@ -5,10 +5,13 @@ The port of ``multithreading_string_matching_tpu`` (JAX/Pallas on a TPU),
 which stays beside it as the reference.  Module names follow the JAX
 package's, so each module's counterpart is found by name:
 
-- ``io``    — pattern files, classic-pcap ingest, payload decode, synthetic
-              captures, the native C++ ingest bridge (host, numpy).
-- ``ops``   — the window matcher: staging plans, the plain PyTorch version,
-              and the hand-written CUDA kernels (``csrc/window_count.cu``).
+- ``io``    — pattern files, classic-pcap ingest (one-shot and streamed),
+              payload decode, flow reassembly, synthetic captures, the
+              native C++ ingest bridge (host, numpy).
+- ``ops``   — the window and table matchers: staging plans, the plain
+              PyTorch versions, and the hand-written CUDA kernels
+              (``csrc/*.cu``).
+- ``parallel`` — the flow monitor (``flow_stream.FlowStreamMatcher``).
 - ``utils`` — phase timers and the reference-compatible report.
 - ``api``   — :class:`Matcher`; ``cli`` — the ``serial`` and ``match``
               commands.

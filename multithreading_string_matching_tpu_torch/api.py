@@ -115,6 +115,7 @@ class Matcher:
         )
         self._window = None
         self._kernels = None
+        self._halo_kernels = None
 
     def _maybe_fold(self, payloads: np.ndarray) -> np.ndarray:
         """Case-fold payload bytes when case-insensitive; zero padding stays
@@ -142,6 +143,20 @@ class Matcher:
             else:
                 self._kernels = CudaWindowMatcher(self.window, self.device)
         return self._kernels
+
+    @property
+    def halo_kernels(self) -> CudaWindowMatcher:
+        """The window kernels that count flow-stream rounds
+        (``count_tile_halo``): this matcher's own kernels when it takes the
+        window kernels, else window kernels over the same program.  The
+        table kernels have no halo form, so large sets take the window
+        kernel's halo mode too (the JAX package sends them to its XLA
+        window form instead; the counts are the same)."""
+        if self._halo_kernels is None:
+            own = self._kernels
+            self._halo_kernels = (own if isinstance(own, CudaWindowMatcher)
+                                  else CudaWindowMatcher(self.window, self.device))
+        return self._halo_kernels
 
     # The JAX package's thresholds (its api.py), measured on a TPU and kept
     # as placeholders: more pattern words than this take the table kernels,

@@ -4,7 +4,9 @@
 // pallas_window.py::_make_kernel (with window_views), as launched by
 // PallasWindowMatcher._one_tile (totals, int32[U]),
 // PallasWindowMatcher._one_tile_repeated (totals with a repeats grid axis)
-// and PallasWindowMatcher._one_tile_rows (per_row=True, int32[n, U]).
+// and PallasWindowMatcher._one_tile_rows (per_row=True, int32[n, U]); and,
+// in its halo mode, the TPU kernel _make_halo_kernel as launched by
+// PallasWindowMatcher._halo_run (the flow stream's scan rounds).
 //
 // What it computes, for every row r, position i < L and pattern u:
 //   w_k      = little-endian uint32 of payload[r, i+4k .. i+4k+3], 0 past L
@@ -12,6 +14,11 @@
 //   totals   : out[u]    += reps * hit   (window_count_totals; the grid's
 //              y axis runs the whole tile reps times, each re-reading it)
 //   per row  : out[r, u] += hit      (window_count_rows)
+//   halo     : out[u]    += hit  and  i + lens[u] > min_end  and  i >= ms[r]
+//              (window_count_halo: rows are [H halo bytes | round bytes],
+//              lengths[r] is the row's valid bytes halo included, min_end = H
+//              gives each match to the round its end falls in, and ms[r] =
+//              H - real halo bytes keeps matches out of fabricated zeros)
 // Outputs are in build (unique-pattern) order, as the TPU kernel's were.
 //
 // What bounds it on an H100: about sum_u K_u word compares per payload
@@ -39,6 +46,11 @@
 //   arguments, staged through shared memory in chunks of kTableWords words,
 //   so any U x K works (3072 8-byte patterns take three chunks).
 // - No 128-lane padding: any n >= 0 and L >= 0; rows of length 0 count 0.
+// - Halo mode: the TPU masked every position of the row; here a row's scan
+//   starts at max(ms[r], 0), so positions that cannot count are never
+//   staged, and the min_end test is one compare per pattern.  A flow round
+//   re-laid as fixed-width sub-lanes (FlowStreamMatcher) gives rows of
+//   H + 2048 bytes: one full segment and one of H positions.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,16 +68,17 @@ __device__ __forceinline__ uint32_t word_at(const uint32_t* s, int b) {
   return __funnelshift_r(s[q], s[q + 1], (b & 3) * 8);
 }
 
-template <bool kPerRow>
+template <bool kPerRow, bool kHalo>
 __global__ void __launch_bounds__(kThreads)
 window_count_kernel(const uint8_t* __restrict__ payload,
                     const int32_t* __restrict__ lengths,
+                    const int32_t* __restrict__ min_start,  // [n], halo mode only
                     const uint32_t* __restrict__ words,
                     const uint32_t* __restrict__ masks,
                     const int32_t* __restrict__ lens,
                     int32_t* __restrict__ out,
                     int64_t n, int64_t L, int U, int K, int chunk,
-                    int stage_words) {
+                    int stage_words, int min_end) {
   extern __shared__ uint32_t smem[];
   uint32_t* s_words = smem;                                      // [chunk, K]
   uint32_t* s_masks = s_words + chunk * K;                       // [chunk, K]
@@ -93,7 +106,8 @@ window_count_kernel(const uint8_t* __restrict__ payload,
       // A fitting match starts below min(len, L): i + m <= len with m >= 1.
       const int64_t limit = len < L ? len : L;
       const uint8_t* rowp = payload + row * L;
-      for (int64_t s = 0; s < limit; s += kSeg) {
+      const int64_t first = kHalo && min_start[row] > 0 ? min_start[row] : 0;
+      for (int64_t s = first; s < limit; s += kSeg) {
         for (int j = threadIdx.x; j < stage_bytes; j += blockDim.x) {
           const int64_t g = s + j;
           s_bytes8[j] = g < L ? rowp[g] : 0;
@@ -105,6 +119,7 @@ window_count_kernel(const uint8_t* __restrict__ payload,
           const uint32_t w0 = word_at(s_bytes, i);
           for (int u = 0; u < cu; ++u) {
             if (s_lens[u] > room) continue;
+            if (kHalo && s + i + s_lens[u] <= min_end) continue;  // ends in the halo
             const uint32_t* pw = s_words + u * K;
             const uint32_t* pm = s_masks + u * K;
             bool ok = (w0 & pm[0]) == pw[0];
@@ -136,26 +151,30 @@ window_count_kernel(const uint8_t* __restrict__ payload,
   }
 }
 
-template <bool kPerRow>
+template <bool kPerRow, bool kHalo = false>
 int launch(const void* payload, const void* lengths, const void* words,
            const void* masks, const void* lens, void* out, long long n,
-           long long L, int U, int K, int reps, int device, void* stream) {
+           long long L, int U, int K, int reps, int device, void* stream,
+           const void* min_start = nullptr, int min_end = 0) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0 || L <= 0 || U <= 0) return 0;
-  if (K <= 0 || K > kTableWords || reps <= 0 || reps > 65535 || (kPerRow && reps != 1))
+  if (K <= 0 || K > kTableWords || reps <= 0 || reps > 65535 || (kPerRow && reps != 1) ||
+      (kHalo && (min_start == nullptr || min_end < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunk = U < kTableWords / K ? U : kTableWords / K;
   const int stage_words = kSeg / 4 + K + 1;  // covers byte kSeg - 1 + 4K + 3
   const size_t smem =
       static_cast<size_t>(2 * chunk * K + 2 * chunk + stage_words) * sizeof(uint32_t);
   const int blocks = static_cast<int>(n < kMaxBlocks ? n : kMaxBlocks);
-  window_count_kernel<kPerRow><<<dim3(blocks, reps), kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  window_count_kernel<kPerRow, kHalo><<<dim3(blocks, reps), kThreads, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(payload), static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(min_start),
       static_cast<const uint32_t*>(words), static_cast<const uint32_t*>(masks),
       static_cast<const int32_t*>(lens), static_cast<int32_t*>(out),
-      static_cast<int64_t>(n), static_cast<int64_t>(L), U, K, chunk, stage_words);
+      static_cast<int64_t>(n), static_cast<int64_t>(L), U, K, chunk, stage_words,
+      min_end);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -182,6 +201,18 @@ int msm_window_count_rows(const void* payload, const void* lengths,
                           void* stream) {
   return launch<true>(payload, lengths, words, masks, lens, out, n, L, U, K,
                       1, device, stream);
+}
+
+// Halo totals (flow rounds): adds into out int32[U], which the caller has
+// zeroed.  payload uint8[n, L] rows [halo | bytes], eff int32[n] valid bytes
+// per row, ms int32[n] first start column per row, min_end = halo width.
+int msm_window_count_halo(const void* payload, const void* eff, const void* ms,
+                          const void* words, const void* masks,
+                          const void* lens, void* out, long long n,
+                          long long L, int U, int K, int min_end, int device,
+                          void* stream) {
+  return launch<false, true>(payload, eff, words, masks, lens, out, n, L, U, K,
+                             1, device, stream, ms, min_end);
 }
 
 const char* msm_cuda_error_string(int code) {

@@ -1,2 +1,3 @@
 """Host-side readers and decoders: pattern files, pcap captures, payload
-extraction, synthetic corpora and the native ingest bridge."""
+extraction, flow reassembly, synthetic corpora and the native ingest
+bridge."""

@@ -94,6 +94,20 @@ def _et_walk(buf, off, cap, et_base: int, n: int, *, vlan: bool):
     return et_off, et
 
 
+def l2_sizes(pcap: PcapFile, *, vlan: bool = False) -> np.ndarray:
+    """``int64[N]`` per-packet link-layer header sizes: decode_headers' own
+    L2 geometry (same linktype map, same up-to-two VLAN tag walk), so the
+    flow layer reads IP headers where the validity predicate validated
+    them.  Linktypes without an ethertype have no VLAN tags: there
+    ``vlan`` changes nothing, as in decode_headers."""
+    et_base, l2_base = _linktype_geometry(pcap.linktype)
+    n = pcap.offsets.shape[0]
+    if et_base is None or not vlan:
+        return np.full(n, l2_base, np.int64)
+    et_off, _ = _et_walk(pcap.buf, pcap.offsets, pcap.caplens, et_base, n, vlan=True)
+    return et_off + 2
+
+
 def decode_headers(
     pcap: PcapFile,
     mode: str,

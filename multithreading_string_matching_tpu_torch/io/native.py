@@ -61,6 +61,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         i64p, i64p, i64p, i64p, i64p,
     ]
+    lib.msm_parse_stream.restype = ctypes.c_int64
+    lib.msm_parse_stream.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+        i64p, i64p, i64p, i64p, i64p, i64p,
+    ]
     lib.msm_decode.restype = None
     lib.msm_decode.argtypes = [
         u8p, ctypes.c_int64, i64p, i64p, i64p, ctypes.c_int64,
@@ -69,6 +74,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.msm_fill_padded.restype = None
     lib.msm_fill_padded.argtypes = [
         u8p, i64p, i64p, ctypes.c_int64, u8p, ctypes.c_int64,
+    ]
+    lib.msm_scatter_segments.restype = None
+    lib.msm_scatter_segments.argtypes = [
+        u8p, i64p, i64p, i64p, i64p, ctypes.c_int64, u8p, ctypes.c_int64,
     ]
     lib.msm_pack_fill.restype = None
     lib.msm_pack_fill.argtypes = [
@@ -115,6 +124,33 @@ def parse_records(buf: np.ndarray, swapped: bool, strict: bool):
         _u8(buf), buf.size, int(swapped), int(strict), *[_i64(a) for a in arrs]
     )
     return tuple(arrs)
+
+
+def parse_stream(pend: bytearray, pos: int, swapped: bool, batch_max: int, max_record: int):
+    """Native streaming record walk over ``pend[pos:]``: parse every
+    complete record, at most ``batch_max``.  Returns ``(count, consumed,
+    status, need, offsets, caplens, origlens, ts_sec, ts_frac)``; offsets
+    are packet-data starts relative to ``pos``, and status is 0 (needs
+    ``need`` more bytes), 1 (batch full) or 2 (a record over
+    ``max_record``).  The buffer export is released before returning, so
+    the caller may resize ``pend`` again."""
+    lib = _need_lib()
+    avail = len(pend) - pos
+    cap = max(1, min(int(batch_max), avail // 16 + 1))
+    arrs = [np.empty(cap, dtype=np.int64) for _ in range(5)]
+    state = np.zeros(3, dtype=np.int64)
+    # The ctypes array decays to a pointer at the call; ctypes.cast would
+    # keep the export alive and the caller's next resize of pend would raise.
+    c_buf = (ctypes.c_uint8 * avail).from_buffer(pend, pos)
+    try:
+        count = lib.msm_parse_stream(
+            c_buf, avail, int(swapped), cap, max_record,
+            *[_i64(a) for a in arrs], _i64(state),
+        )
+    finally:
+        del c_buf
+    return (int(count), int(state[0]), int(state[1]), int(state[2]),
+            *[a[:count] for a in arrs])
 
 
 def decode(buf, offsets, caplens, origlens, mode: str, strict: bool):
@@ -182,6 +218,26 @@ def pack(payloads, lengths, width: int):
         n_rows, width, _u8(out),
     )
     return out, fills[:n_rows].astype(np.int32)
+
+
+def scatter_segments(buf, src, lens, rows, offs, out: np.ndarray) -> None:
+    """Copy ``buf[src[s] : src[s] + lens[s]]`` into ``out[rows[s], offs[s]:]``
+    for every segment s (the flow-reassembly fill).  ``out`` must be a
+    C-contiguous uint8 matrix and the geometry in bounds (io/flows derives
+    both from the decode that sized ``out``)."""
+    lib = _need_lib()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    if out.dtype != np.uint8 or out.ndim != 2 or not out.flags.c_contiguous:
+        # The write target cannot be copied defensively: a wrong dtype or
+        # stride would make the C row arithmetic write out of bounds.
+        raise ValueError("scatter_segments: out must be a C-contiguous uint8 matrix")
+    lib.msm_scatter_segments(
+        _u8(buf), _i64(np.ascontiguousarray(src, np.int64)),
+        _i64(np.ascontiguousarray(lens, np.int64)),
+        _i64(np.ascontiguousarray(rows, np.int64)),
+        _i64(np.ascontiguousarray(offs, np.int64)),
+        len(src), _u8(out), out.shape[1],
+    )
 
 
 def fill_padded(buf, starts, lens, lmax: int) -> np.ndarray:

@@ -5,6 +5,8 @@ capture becomes ONE flat ``uint8`` buffer plus per-packet
 ``(offset, caplen, origlen)`` arrays, walked by the native C++ ingest when it
 is available and by the numpy walker below otherwise (bit-identical).
 
+:func:`iter_pcap` streams a capture in bounded-memory batches (the flow
+monitor's ingest) and :func:`slice_pcap` cuts packet ranges out of one.
 Only the classic container is ported so far; a pcapng file raises
 ``NotImplementedError``.  Compressed captures (gzip/bzip2/xz, detected by
 content magic) decompress transparently.
@@ -15,7 +17,7 @@ from __future__ import annotations
 import os
 import struct
 from dataclasses import dataclass
-from typing import BinaryIO
+from typing import BinaryIO, Iterator
 
 import numpy as np
 
@@ -25,6 +27,11 @@ MAGIC_NSEC_LE = 0xA1B23C4D
 MAGIC_NSEC_BE = 0x4D3CB2A1
 
 LINKTYPE_ETHERNET = 1
+
+# Streaming cap on one record: a corrupt length field must raise, not
+# buffer gigabytes before the file turns out to end (read_pcap, holding the
+# whole file, has no such cap).
+_MAX_STREAM_RECORD = 1 << 28
 
 _GLOBAL_HDR = struct.Struct("<IHHiIII")
 _GLOBAL_HDR_BE = struct.Struct(">IHHiIII")
@@ -61,6 +68,12 @@ class _PrefixReader:
         r1 = getattr(self._f, "read1", None)
         return r1(n) if r1 is not None else self._f.read(n)
 
+    def seekable(self) -> bool:
+        # Picks the streaming refill mode: full reads for files, whatever
+        # has arrived for pipes.
+        probe = getattr(self._f, "seekable", None)
+        return bool(probe and probe())
+
     def readable(self) -> bool:  # io protocol, used by BZ2File/LZMAFile
         return True
 
@@ -88,6 +101,9 @@ class _CodecClose:
 
     def read1(self, n: int = -1) -> bytes:
         return self._codec.read1(n)
+
+    def seekable(self) -> bool:
+        return self._under.seekable()  # the source's, not the codec's
 
     def close(self) -> None:
         self._codec.close()
@@ -146,6 +162,20 @@ def _stream_read(f, n: int, strict: bool) -> bytes:
     return parts[0] if len(parts) == 1 else b"".join(parts)
 
 
+def _stream_read1(f, n: int, strict: bool) -> bytes:
+    """At most one underlying read: whatever has arrived, up to ``n`` (the
+    refill for pipes, so a live feed flows through as it arrives).  Returns
+    b"" only at end of stream or, when not ``strict``, at a codec error."""
+    errors = _codec_errors(f)
+    r1 = getattr(f, "read1", None)
+    try:
+        return r1(n) if r1 is not None else f.read(n)
+    except errors as e:
+        if strict:
+            raise ValueError(f"truncated or corrupt compressed capture: {e}") from e
+        return b""
+
+
 def _read_all(f, strict: bool, chunk: int = 4 << 20) -> bytes:
     """Read a whole capture stream, honoring the truncation contract."""
     if strict:
@@ -195,6 +225,11 @@ def open_capture(source) -> BinaryIO:
 
         return _CodecClose(lzma.LZMAFile(pr, "rb"), pr)
     return pr
+
+
+def _source_seekable(f) -> bool:
+    probe = getattr(f, "seekable", None)
+    return bool(probe and probe())
 
 
 @dataclass(frozen=True)
@@ -310,3 +345,183 @@ def classic_global_header(
     """The 24-byte classic-pcap global header."""
     magic = MAGIC_NSEC_LE if nanos else MAGIC_USEC_LE
     return struct.pack("<IHHiIII", magic, 2, 4, 0, 0, snaplen, linktype)
+
+
+def iter_pcap(
+    path,
+    batch_packets: int = 1024,
+    *,
+    strict: bool = True,
+    read_size: int = 4 << 20,
+    use_native: bool = True,
+) -> Iterator[PcapFile]:
+    """Stream a classic capture as :class:`PcapFile` batches of at most
+    ``batch_packets`` packets, reading ``read_size`` bytes at a time: peak
+    residency is one batch plus one read buffer.  Concatenated, the batches
+    equal :func:`read_pcap`'s packets byte for byte.
+
+    ``path`` is a path, ``"-"`` (stdin) or a binary file object (the
+    ``tcpdump -w - | ... --stream`` shape).  ``strict=False`` keeps the
+    complete prefix of a truncated capture.  ``use_native`` takes the C++
+    streaming record walk, which keeps each batch's record headers in
+    ``buf`` (offsets point past them) so a batch is one copy.  pcapng
+    raises ``NotImplementedError`` (not yet ported).
+    """
+    if batch_packets < 1:
+        raise ValueError("batch_packets must be >= 1")
+    with open_capture(path) as f:
+        # Header reads are always strict: a capture whose global header is
+        # unreadable has no complete prefix to keep.
+        head = _stream_read(f, 24, True)
+        swapped, nanos, snaplen, linktype = _parse_global_header(head)
+        rec = struct.Struct(">IIII" if swapped else "<IIII")
+
+        pend = bytearray()
+        pos = 0
+        eof = False
+        offsets, caplens, origlens, tss, tsf, chunks = [], [], [], [], [], []
+        buf_pos = 0
+        n_rec = 0
+
+        def _cat(parts) -> np.ndarray:
+            # Scalars from the Python walk, arrays from the native walk.
+            if parts and isinstance(parts[0], np.ndarray):
+                return parts[0] if len(parts) == 1 else np.concatenate(parts)
+            return np.asarray(parts, dtype=np.int64)
+
+        def flush() -> PcapFile:
+            nonlocal buf_pos, n_rec
+            if chunks and isinstance(chunks[0], np.ndarray):
+                buf = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
+            else:
+                blob = b"".join(chunks)
+                buf = (np.frombuffer(blob, dtype=np.uint8).copy() if blob
+                       else np.zeros(0, dtype=np.uint8))
+            out = PcapFile(
+                buf=buf, offsets=_cat(offsets), caplens=_cat(caplens),
+                origlens=_cat(origlens), ts_sec=_cat(tss), ts_frac=_cat(tsf),
+                linktype=linktype, snaplen=snaplen, nanos=nanos,
+            )
+            for lst in (offsets, caplens, origlens, tss, tsf, chunks):
+                lst.clear()
+            buf_pos = 0
+            n_rec = 0
+            return out
+
+        seekable = _source_seekable(f)
+
+        def refill(need: int) -> bool:
+            """Grow ``pend`` until ``need`` bytes lie past ``pos``: full
+            reads from files, whatever has arrived from pipes."""
+            nonlocal pos, eof
+            while len(pend) - pos < need and not eof:
+                if pos:
+                    del pend[:pos]
+                    pos = 0
+                want = max(read_size, need)
+                b = (_stream_read(f, want, strict) if seekable
+                     else _stream_read1(f, want, strict))
+                if not b:
+                    eof = True
+                else:
+                    pend.extend(b)
+            return len(pend) - pos >= need
+
+        if use_native:
+            from multithreading_string_matching_tpu_torch.io import native
+
+            use_native = native.available()
+
+        def too_big(size: int) -> ValueError:
+            return ValueError(
+                f"pcap record of {size} bytes exceeds the {_MAX_STREAM_RECORD}-byte "
+                "streaming bound; use read_pcap for this capture"
+            )
+
+        while True:
+            if not refill(16):
+                avail = len(pend) - pos
+                if avail and strict:
+                    raise ValueError(f"{avail} trailing bytes after last pcap record")
+                break
+            if use_native:
+                count, consumed, status, need, o, c, g, s, fr = native.parse_stream(
+                    pend, pos, swapped, batch_packets - n_rec, _MAX_STREAM_RECORD,
+                )
+                if count:
+                    # One span copy, record headers included: the offsets
+                    # already point past each 16-byte header in the span.
+                    chunks.append(np.frombuffer(pend, dtype=np.uint8, count=consumed,
+                                                offset=pos).copy())
+                    offsets.append(o + buf_pos)
+                    caplens.append(c)
+                    origlens.append(g)
+                    tss.append(s)
+                    tsf.append(fr)
+                    buf_pos += consumed
+                    n_rec += count
+                    pos += consumed
+                if status == 1:  # batch full
+                    yield flush()
+                    continue
+                if status == 2:  # oversized record
+                    if strict:
+                        raise too_big(need)
+                    break
+                # status 0: the next record straddles the buffer's end.
+                if need == 16:
+                    continue  # a partial header: the refill/EOF logic above
+                if not refill(need):
+                    if strict:
+                        raise ValueError(
+                            f"truncated pcap record: needs {need - 16} bytes, "
+                            f"file has {len(pend) - pos - 16}"
+                        )
+                    break
+                continue
+            sec, frac, incl, orig = rec.unpack_from(pend, pos)
+            if incl > _MAX_STREAM_RECORD:
+                if strict:
+                    raise too_big(incl)
+                break
+            if not refill(16 + incl):
+                if strict:
+                    raise ValueError(
+                        f"truncated pcap record: needs {incl} bytes, "
+                        f"file has {len(pend) - pos - 16}"
+                    )
+                break
+            pos += 16
+            chunks.append(bytes(pend[pos : pos + incl]))
+            pos += incl
+            offsets.append(buf_pos)
+            buf_pos += incl
+            caplens.append(incl)
+            origlens.append(orig)
+            tss.append(sec)
+            tsf.append(frac)
+            n_rec += 1
+            if n_rec >= batch_packets:
+                yield flush()
+        if n_rec:
+            yield flush()
+
+
+def slice_pcap(full: PcapFile, start: int, stop: int, *, copy: bool = True) -> PcapFile:
+    """Packets ``[start, stop)`` of a parsed capture.  ``copy=True`` narrows
+    the byte buffer to the range (the rest can be freed); ``copy=False``
+    keeps a view of the whole buffer (cheap transient slices)."""
+    start = max(0, start)
+    stop = min(full.num_packets, stop)
+    meta = dict(linktype=full.linktype, snaplen=full.snaplen, nanos=full.nanos)
+    if start >= stop:
+        empty = np.zeros(0, dtype=np.int64)
+        return PcapFile(buf=np.zeros(0, dtype=np.uint8), offsets=empty, caplens=empty,
+                        origlens=empty, ts_sec=empty, ts_frac=empty, **meta)
+    cols = dict(caplens=full.caplens[start:stop], origlens=full.origlens[start:stop],
+                ts_sec=full.ts_sec[start:stop], ts_frac=full.ts_frac[start:stop], **meta)
+    if not copy:
+        return PcapFile(buf=full.buf, offsets=full.offsets[start:stop], **cols)
+    lo = int(full.offsets[start])
+    hi = int(full.offsets[stop - 1] + full.caplens[stop - 1])
+    return PcapFile(buf=full.buf[lo:hi].copy(), offsets=full.offsets[start:stop] - lo, **cols)

@@ -44,18 +44,27 @@ def is_stale(out: pathlib.Path, sources: Sequence[pathlib.Path]) -> bool:
     return any(s.stat().st_mtime > mtime for s in sources)
 
 
+# A compile that takes longer than this is stuck: the kernels build in
+# seconds on the card's machine.
+COMPILE_TIMEOUT_S = 600
+
+
 def compile_to(cmd_prefix: List[str], sources: Sequence[pathlib.Path],
                out: pathlib.Path) -> str:
     """Run ``cmd_prefix -o <tmp> sources`` and rename the result to ``out``.
 
     Returns the compiler's combined output; raises ``RuntimeError`` with it
-    when the compile fails.
+    when the compile fails, and naming the command when it runs past
+    ``COMPILE_TIMEOUT_S`` seconds.
     """
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     cmd = [*cmd_prefix, "-o", str(tmp), *map(str, sources)]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=COMPILE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{' '.join(cmd)} timed out after {COMPILE_TIMEOUT_S} s") from e
     except OSError as e:
         raise RuntimeError(f"cannot run {cmd[0]}: {e}") from e
     log = proc.stdout + proc.stderr

@@ -1,18 +1,20 @@
 """Hand-written Hopper kernels for the window matcher, and their wrappers.
 
 Counterpart of ``multithreading_string_matching_tpu/ops/pallas_window.py``.
-The two CUDA kernels in ``csrc/window_count.cu`` replace the TPU kernel
+The CUDA kernels in ``csrc/window_count.cu`` replace the TPU kernel
 ``_make_kernel`` in its totals form (``_one_tile``, and ``_one_tile_repeated``
 through the totals kernel's repeats grid axis) and its per-row form
-(``_one_tile_rows``).  The library is built with ``nvcc`` from the checkout
-on first use (ops/_build.py) and bound with ctypes.
+(``_one_tile_rows``), and ``_make_halo_kernel`` (``_halo_run``, the flow
+stream's scan rounds).  The library is built with ``nvcc`` from the
+checkout on first use (ops/_build.py) and bound with ctypes.
 
-The wrappers :func:`window_count_totals` and :func:`window_count_rows`
-take the plain version (ops/window.window_count) for tensors on the CPU and
-launch the kernel for tensors on a CUDA device; on a CUDA tensor they launch
-or raise, never fall back.  ``LAUNCHES`` counts kernel launches by name (a
-totals launch with ``reps > 1`` counts as ``window_count_totals_repeated``),
-so a run can show that its main path went through the kernels.
+The wrappers :func:`window_count_totals`, :func:`window_count_rows` and
+:func:`window_count_halo` take the plain version (ops/window.py) for
+tensors on the CPU and launch the kernel for tensors on a CUDA device; on a
+CUDA tensor they launch or raise, never fall back.  ``LAUNCHES`` counts
+kernel launches by name (a totals launch with ``reps > 1`` counts as
+``window_count_totals_repeated``), so a run can show that its main path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -23,7 +25,11 @@ from typing import Dict, List, Tuple
 import torch
 
 from multithreading_string_matching_tpu_torch.ops._build import CSRC_DIR, KernelLibrary
-from multithreading_string_matching_tpu_torch.ops.window import WindowProgram, window_count
+from multithreading_string_matching_tpu_torch.ops.window import (
+    WindowProgram,
+    window_count,
+    window_count_halo_plain,
+)
 
 SOURCES = [CSRC_DIR / "window_count.cu"]
 
@@ -31,6 +37,7 @@ SOURCES = [CSRC_DIR / "window_count.cu"]
 # a wrapper launches its kernel.
 LAUNCHES: Dict[str, int] = {
     "window_count_totals": 0, "window_count_rows": 0, "window_count_totals_repeated": 0,
+    "window_count_halo": 0,
 }
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
@@ -39,6 +46,10 @@ LIBRARY = KernelLibrary("msm_window_count", SOURCES, {
     "msm_window_count_totals": _ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     # ..., n, L, U, K, device, stream
     "msm_window_count_rows": _ARGS + [ctypes.c_int, ctypes.c_void_p],
+    # payload, eff, ms, words, masks, lens, out, n, L, U, K, min_end, device, stream
+    "msm_window_count_halo": [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p],
 })
 load_library = LIBRARY.load
 BUILD_INFO = LIBRARY.build_info
@@ -133,6 +144,33 @@ def window_count_rows(payload, lengths, words, masks, lens) -> torch.Tensor:
     return out
 
 
+def window_count_halo(x, eff, ms, words, masks, lens, min_end: int) -> torch.Tensor:
+    """int32[U] build-order totals over one flow-round tile ``x`` uint8[R, W]
+    of rows ``[halo | bytes]``: a match at i counts iff its word chain
+    matches, ``i + m <= eff[r]``, ``i + m > min_end`` (the halo width) and
+    ``i >= ms[r]``."""
+    if device_kind(x) == "cpu":
+        return window_count_halo_plain(x, eff, ms, min_end, (words, masks, lens))
+    _check(x, eff, words, masks, lens)
+    check_tile(x, eff, (("ms", ms, 1),))
+    if ms.shape[0] != x.shape[0]:
+        raise ValueError(f"ms has {ms.shape[0]} rows, x {x.shape[0]}")
+    check_totals_bound(x, 1)
+    if min_end < 0:
+        raise ValueError(f"min_end must be >= 0, got {min_end}")
+    out = torch.zeros(words.shape[0], dtype=torch.int32, device=x.device)
+    R, W = x.shape
+    U, K = words.shape
+    if R == 0 or W == 0 or U == 0:
+        return out  # nothing to count: the zeroed output is the answer
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    LIBRARY.call("msm_window_count_halo", x.data_ptr(), eff.data_ptr(), ms.data_ptr(),
+                 words.data_ptr(), masks.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                 R, W, U, K, min_end, x.device.index or 0, stream)
+    LAUNCHES["window_count_halo"] += 1
+    return out
+
+
 class TileCountSurface:
     """The tile-count surface shared by the window and the table matchers
     (the counterpart of the JAX package's ``TileCountSurface``).
@@ -201,3 +239,22 @@ class CudaWindowMatcher(TileCountSurface):
 
     def _tile_rows(self, p, l) -> torch.Tensor:
         return window_count_rows(p, l, self.words, self.masks, self.lens)
+
+    # -- flow-halo rounds -------------------------------------------------
+
+    @property
+    def halo_width(self) -> int:
+        return max(int(self.wp.max_len) - 1, 1)
+
+    def count_tile_halo(self, x, eff_len, min_start) -> torch.Tensor:
+        """Build-order int32[U] totals for one flow-round tile ``x = [halo |
+        round bytes]`` (``halo_width`` halo columns), the carried-halo scan
+        of ops/window.window_stream_chunk in one launch.
+
+        ``eff_len[i]``: valid bytes of row i, halo included; bytes past it
+        are not read as matches.  ``min_start[i]``: first column a match
+        may start at (``H`` minus the row's real halo bytes)."""
+        x, eff = self._tile(x, eff_len)
+        ms = torch.as_tensor(min_start, dtype=torch.int32, device=self.device).contiguous()
+        return window_count_halo(x, eff, ms, self.words, self.masks, self.lens,
+                                 self.halo_width)

@@ -14,6 +14,14 @@ with no carried state::
 the port's ``'window'`` engine, the CPU path of the kernel wrappers
 (ops/cuda_window.py), and what the CUDA kernels are held against on the card.
 
+Streaming adds two masks: ``min_end`` counts a match only where its last
+byte lies at or past that column, and ``min_start`` only where it starts at
+or past it.  A lane scanned as ``[halo | chunk]``, the halo being the
+previous ``H = max_len - 1`` stream bytes, then counts each match in exactly
+one chunk, the one its end falls in (:func:`window_stream_chunk`); the
+fabricated zeros in front of a young stream's halo are kept out of every
+match by ``min_start`` (:class:`StreamHalo`'s fill).
+
 Pattern tables travel as int32 tensors holding the uint32 bit patterns
 (PyTorch's uint32 support is partial); the plain version widens them to
 int64 and masks back to 32 bits.
@@ -21,7 +29,7 @@ int64 and masks back to 32 bits.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -132,12 +140,18 @@ def window_count(
     payloads: torch.Tensor,
     lengths: torch.Tensor,
     per_packet: bool = False,
+    *,
+    min_end: int = 0,
+    min_start: Union[int, torch.Tensor] = 0,
 ) -> torch.Tensor:
     """Plain PyTorch window count on the payloads' device.
 
     ``words/masks`` int32[U, K] (uint32 bit patterns), ``lens`` int32[U],
     ``payloads`` uint8[N, L], ``lengths`` int32[N].  Returns int32[U] totals,
     or int32[N, U] per-row counts with ``per_packet``, in build order.
+    ``min_end``: count a match at position i only if ``i + m - 1 >=
+    min_end``.  ``min_start``: only if ``i >= min_start``, a scalar or one
+    bound per row (a tensor of shape [] or [N]); 0 drops the mask.
     """
     n, L = payloads.shape
     U, K = words.shape
@@ -151,6 +165,9 @@ def window_count(
     pl = lens.to(device=dev, dtype=torch.int64)
     ln = lengths.to(device=dev, dtype=torch.int64)
     pos = torch.arange(L, dtype=torch.int64, device=dev)
+    ms = None
+    if not (isinstance(min_start, int) and min_start == 0):
+        ms = torch.as_tensor(min_start, device=dev).to(torch.int64).expand(n)
     outs = []
     for g0 in range(0, U, GROUP):
         g1 = min(g0 + GROUP, U)
@@ -159,8 +176,12 @@ def window_count(
             wk = w32[:, 4 * k : 4 * k + L]                           # [N, L]
             hit = (wk[None] & pm[g0:g1, k, None, None]) == pw[g0:g1, k, None, None]
             acc = hit if acc is None else acc & hit
-        fit = pos[None, None, :] + pl[g0:g1, None, None] <= ln[None, :, None]
-        acc = acc & fit
+        end = pos[None, None, :] + pl[g0:g1, None, None]             # i + m
+        acc = acc & (end <= ln[None, :, None])
+        if min_end:
+            acc = acc & (end - 1 >= min_end)
+        if ms is not None:
+            acc = acc & (pos[None, None, :] >= ms[None, :, None])
         if per_packet:
             outs.append(acc.sum(dim=2, dtype=torch.int32).T)          # [N, g]
         else:
@@ -213,3 +234,81 @@ def count_matches_window_tiles(
     if per_packet:
         return outs
     return torch.stack(outs).sum(dim=0, dtype=torch.int32)
+
+
+def window_count_halo_plain(x: torch.Tensor, eff: torch.Tensor, ms: torch.Tensor, H: int,
+                            tables) -> torch.Tensor:
+    """Plain version of the halo kernel (ops/cuda_window.window_count_halo):
+    int32[U] build-order totals over ``x`` uint8[R, H + C] rows ``[halo |
+    bytes]``, counting a match at i iff its word chain matches, ``i + m <=
+    eff[r]``, ``i + m > H`` and ``i >= ms[r]``.  ``tables`` is ``(words,
+    masks, lens)``."""
+    words, masks, lens = tables
+    return window_count(words, masks, lens, x, eff, min_end=H, min_start=ms)
+
+
+class StreamHalo(NamedTuple):
+    """Carried streaming state: each lane's last ``H`` stream bytes, and how
+    many of them are real (the rest are the zeros a stream starts with; no
+    match may begin inside them).  ``fill`` is an int32 scalar tensor when
+    every lane shares one stream position, or int32[N] when lanes carry
+    their own histories (flows)."""
+
+    data: torch.Tensor  # uint8[N, H]
+    fill: torch.Tensor  # int32 [] or [N], 0 <= fill <= H
+
+
+HaloCount = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def window_stream_chunk(
+    wp: WindowProgram,
+    chunk,
+    rel_len,
+    halo=None,
+    *,
+    expand_duplicates: bool = True,
+    halo_count: Optional[HaloCount] = None,
+):
+    """Scan one chunk of per-lane byte streams with a carried byte halo.
+
+    ``chunk`` uint8[N, C] (a tensor stays on its device, an array goes to
+    the CPU).  ``rel_len``: payload bytes left from this chunk's first
+    column; above C means the lane goes on, and a negative value means it
+    ended in an earlier chunk.  ``halo=None`` starts the streams;
+    a :class:`StreamHalo` continues them; a bare uint8[N, H] array is a halo
+    whose bytes are all real.  Returns ``(counts, new_halo)``: summed over
+    consecutive chunks, the counts equal the unchunked counts, matches
+    across chunk edges included.
+
+    ``halo_count(x, eff, ms)`` counts the assembled ``[halo | chunk]`` tile
+    (int32[U] build order); the default is the plain version.  The flow
+    stream passes the halo kernel here on the card.
+    """
+    chunk = torch.as_tensor(chunk, dtype=torch.uint8)
+    dev = chunk.device
+    n, C = chunk.shape
+    H = max(int(wp.max_len) - 1, 1)
+    if halo is None:
+        halo_b = torch.zeros((n, H), dtype=torch.uint8, device=dev)
+        fill = torch.zeros((), dtype=torch.int32, device=dev)
+    elif isinstance(halo, StreamHalo):
+        halo_b = torch.as_tensor(halo.data, dtype=torch.uint8).to(dev)
+        fill = torch.as_tensor(halo.fill, dtype=torch.int32).to(dev)
+    else:
+        halo_b = torch.as_tensor(halo, dtype=torch.uint8).to(dev)
+        fill = torch.full((), H, dtype=torch.int32, device=dev)
+    x = torch.cat([halo_b, chunk], dim=1).contiguous()
+    rel = torch.as_tensor(rel_len).to(device=dev, dtype=torch.int64)
+    # Valid bytes: the halo plus what is left of the lane, capped at the
+    # tile so that match ends stay inside this chunk's bytes.
+    eff = torch.clamp(rel.clamp(min=0) + H, max=H + C).to(torch.int32).contiguous()
+    # The first H - fill halo columns are fabricated zeros.
+    ms = (H - fill).to(torch.int32).expand(n).contiguous()
+    if halo_count is None:
+        counts = window_count_halo_plain(x, eff, ms, H, wp.tables(dev))
+    else:
+        counts = halo_count(x, eff, ms)
+    if expand_duplicates:
+        counts = counts[torch.from_numpy(wp.dup_map).to(device=dev, dtype=torch.long)]
+    return counts, StreamHalo(x[:, -H:].contiguous(), torch.clamp(fill + C, max=H))

@@ -105,7 +105,14 @@ def test_package_never_imports_jax(capture):
         "import multithreading_string_matching_tpu_torch as m\n"
         "from multithreading_string_matching_tpu_torch import cli\n"
         "from multithreading_string_matching_tpu_torch.ops import cuda_window, window, bucketing\n"
+        "from multithreading_string_matching_tpu_torch.io import flows\n"
+        "from multithreading_string_matching_tpu_torch.parallel import flow_stream\n"
         f"assert cli.main(['serial', {str(capture)!r}, {str(STANDIN)!r}, 'udp']) == 0\n"
+        "fs = flow_stream.FlowStreamMatcher(m.Matcher([b'ab'], device='cpu'), 'udp',\n"
+        "                                   engine='window')\n"
+        f"fs.feed_pcap_slice(m.read_pcap({str(capture)!r}))\n"
+        "fs.flush()\n"
+        f"assert flows.extract_flows(m.read_pcap({str(capture)!r}), 'udp').num_flows == 1\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('multithreading_string_matching_tpu.'))\n"
         "assert not bad, bad\n"

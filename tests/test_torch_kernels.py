@@ -20,7 +20,12 @@ from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
 from multithreading_string_matching_tpu_torch.ops import cuda_table as ct
 from multithreading_string_matching_tpu_torch.ops import cuda_window as cw
 from multithreading_string_matching_tpu_torch.ops.table import filter_count, partition, table_count
-from multithreading_string_matching_tpu_torch.ops.window import WindowProgram, window_count
+from multithreading_string_matching_tpu_torch.ops.window import (
+    WindowProgram,
+    window_count,
+    window_count_halo_plain,
+    window_stream_chunk,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -212,3 +217,121 @@ def test_large_set_matcher_on_card_equals_plain_on_cpu(cuda_device):
         assert np.array_equal(gpu.count(payloads, lengths, staging=staging), want)
     assert np.array_equal(gpu.count(payloads, lengths, per_packet=True),
                           cpu.count(payloads, lengths, per_packet=True))
+
+
+# -- the halo kernel (flow-stream rounds) ------------------------------------
+
+# name: (patterns, seed, rows, halo-free width C, alphabet)
+HALO_CASES = {
+    "small": ([b"ab", b"bca", b"aaaa", b"abcab"], 21, 64, 64, b"abc"),
+    "nul": ([b"a\x00b", b"\x00c", b"ca", b"\x00\x00\x01"], 22, 64, 96, b"abc\x00\x01"),
+    "wider-than-a-segment": (DUPS, 23, 12, 5000, b"abc"),
+    "sub-lane-width": (load_patterns(STANDIN), 24, 300, 2048,
+                       b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ/:. "),
+    "rs3072": (RS, 25, 64, 256, b"rs0123"),
+}
+
+
+def _halo_lanes(pats, seed, n, C, alphabet, dev):
+    """Rows ``[halo | bytes]`` with random real halo fills, random valid
+    lengths (some 0) and planted patterns; bytes past a row's length are
+    not zero."""
+    wp = WindowProgram.build(pats)
+    H = max(int(wp.max_len) - 1, 1)
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(alphabet, np.uint8)
+    x = letters[rng.integers(0, len(letters), size=(n, H + C))]
+    for r in range(n):
+        pat = pats[r % len(pats)]
+        for _ in range(3):
+            o = int(rng.integers(0, H + C - len(pat) + 1))
+            x[r, o : o + len(pat)] = np.frombuffer(pat, np.uint8)
+    fill = rng.integers(0, H + 1, size=n)
+    eff = np.minimum(rng.integers(0, C + 1, size=n) + H, H + C)
+    eff[::7] = 0
+    ms = (H - fill).astype(np.int32)
+    return (wp, H, torch.from_numpy(x).to(dev), torch.from_numpy(eff.astype(np.int32)).to(dev),
+            torch.from_numpy(ms).to(dev))
+
+
+@pytest.mark.parametrize("case", sorted(HALO_CASES))
+def test_halo_kernel_equals_plain(cuda_device, case):
+    wp, H, x, eff, ms = _halo_lanes(*HALO_CASES[case], cuda_device)
+    words, masks, lens = wp.tables(cuda_device)
+    before = cw.LAUNCHES["window_count_halo"]
+    got = cw.window_count_halo(x, eff, ms, words, masks, lens, H)
+    torch.cuda.synchronize()
+    assert cw.LAUNCHES["window_count_halo"] == before + 1
+    want = window_count_halo_plain(x, eff, ms, H, (words, masks, lens))
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(cw.CudaWindowMatcher(wp, cuda_device).count_tile_halo(x, eff, ms), want)
+
+
+def test_halo_wrapper_refuses_bad_inputs(cuda_device):
+    wp, H, x, eff, ms = _halo_lanes(*HALO_CASES["small"], cuda_device)
+    words, masks, lens = wp.tables(cuda_device)
+    with pytest.raises(ValueError):
+        cw.window_count_halo(x, eff, ms[:3], words, masks, lens, H)
+    with pytest.raises(TypeError):
+        cw.window_count_halo(x, eff, ms.long(), words, masks, lens, H)
+    with pytest.raises(ValueError):
+        cw.window_count_halo(x, eff, ms.cpu(), words, masks, lens, H)
+    with pytest.raises(ValueError):
+        cw.window_count_halo(x, eff, ms, words, masks, lens, -1)
+
+
+def test_window_stream_chunk_on_card_equals_cpu(cuda_device):
+    pats = [b"a\x00b", b"\x00c", b"ca", b"abcab"]
+    wp = WindowProgram.build(pats)
+    kern = cw.CudaWindowMatcher(wp, cuda_device)
+    rng = np.random.default_rng(31)
+    payloads = rng.integers(0, 4, size=(16, 300)).astype(np.uint8) + 96
+    payloads[rng.random(payloads.shape) < 0.1] = 0
+    lengths = rng.integers(0, 301, size=16).astype(np.int32)
+    halos = {"cpu": None, "plain": None, "kernel": None}
+    before = cw.LAUNCHES["window_count_halo"]
+    for start in range(0, 300, 37):
+        c = payloads[:, start : start + 37]
+        rel = (lengths - start).astype(np.int32)
+        want, halos["cpu"] = window_stream_chunk(wp, c, rel, halos["cpu"])
+        dc = torch.from_numpy(np.ascontiguousarray(c)).to(cuda_device)
+        plain, halos["plain"] = window_stream_chunk(wp, dc, rel, halos["plain"])
+        got, halos["kernel"] = window_stream_chunk(wp, dc, rel, halos["kernel"],
+                                                   halo_count=kern.count_tile_halo)
+        torch.cuda.synchronize()
+        assert torch.equal(plain.cpu(), want) and torch.equal(got.cpu(), want)
+        assert torch.equal(halos["kernel"].data.cpu(), halos["cpu"].data)
+    assert cw.LAUNCHES["window_count_halo"] > before
+
+
+@pytest.mark.parametrize("pats", [load_patterns(STANDIN), RS[:700]],
+                         ids=["standin", "rs700-table-route"])
+def test_flow_stream_on_card_equals_cpu(cuda_device, tmp_path, pats):
+    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap, slice_pcap
+    from multithreading_string_matching_tpu_torch.io.synth import synth_tcp_flows_pcap
+    from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
+
+    rng = np.random.default_rng(41)
+    flows = []
+    for i in range(40):
+        pay = bytearray(rng.integers(0, 256, size=int(rng.integers(2000, 9000)), dtype=np.uint8))
+        for _ in range(20):
+            p = pats[int(rng.integers(0, len(pats)))]
+            o = int(rng.integers(0, len(pay) - len(p)))
+            pay[o : o + len(p)] = p
+        flows.append(((f"10.3.0.{i + 1}", "10.3.1.1", 5000 + i, 80), bytes(pay)))
+    path = tmp_path / "flows.pcap"
+    synth_tcp_flows_pcap(path, flows, segment_len=700, interleave_seed=1)
+    pcap = read_pcap(path)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        fs = FlowStreamMatcher(Matcher(pats, device=dev), "tcp", engine="window",
+                               scan_bytes=20_000)
+        before = dict(cw.LAUNCHES)
+        for s in range(0, pcap.num_packets, 40):
+            fs.feed_pcap_slice(slice_pcap(pcap, s, s + 40))
+        fs.flush()
+        out[str(dev)] = fs.counts()
+        launched = cw.LAUNCHES["window_count_halo"] - before["window_count_halo"]
+        assert launched == (fs._round if dev != "cpu" else 0)
+    assert np.array_equal(out["cpu"], out[str(cuda_device)]) and out["cpu"].sum() > 100
