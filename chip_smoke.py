@@ -49,6 +49,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    random lanes.  Times: stream rate (median of 3), where a stream's wall
    time goes, the halo kernel on the largest round tile against the plain
    version, and the ``match --flows [--stream]`` wall times.
+7. The sharded path, on phase 5's rule set and capture: pattern-axis totals
+   on a one-shard mesh must launch the shard filter kernel (the shard table
+   kernel with ``MSM_PALLAS_FILTER=0``) and no class kernel, and equal phase
+   5's counts; so must 4-shard, 3-shard and 2x2 virtual meshes on the card,
+   one launch per shard.  Pattern-sharded rows and summary on the first
+   8,192 rows equal phase 5's per-packet counts.  Each shard kernel equals
+   its plain version there, on the whole set's block and on five padded
+   blocks.  ``match --sharded --shard-axis packets`` on the phase-3 files
+   gives phase 3's counts through ``window_count_totals``; a sharded flow
+   stream on a 2-shard mesh equals the unsharded one through
+   ``window_count_halo``.  Times: the shard kernels on the resident
+   [N, L_max] tile and on 8,192 rows against the class route and the plain
+   versions, ``match --sharded --shard-axis patterns`` against unsharded
+   ``match`` (median of 3), and the device busy share of one
+   pattern-sharded count (torch.profiler).
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -326,6 +341,275 @@ def halo_lanes(pats, seed: int, n: int, C: int, alphabet: bytes):
     return wp, H, x, eff, ms
 
 
+def reorder_capture(patterns):
+    """``(flows, pcap)``: 64 seeded TCP flows of 32 KB planted with
+    ``patterns``, reordered, with 5% retransmits and 5% overlaps."""
+    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
+    from multithreading_string_matching_tpu_torch.io.synth import synth_tcp_flows_pcap
+
+    rng = np.random.default_rng(SEED + 6)
+    rflows = []
+    for i in range(64):
+        pay = rng.integers(0x20, 0x7F, size=32 << 10, dtype=np.uint8)
+        for _ in range(10):
+            p = patterns[int(rng.integers(0, len(patterns)))]
+            o = int(rng.integers(0, len(pay) - len(p)))
+            pay[o : o + len(p)] = np.frombuffer(p, np.uint8)
+        rflows.append(((f"10.77.{i}.1", "10.77.255.1", 2000 + i, 80), pay.tobytes()))
+    rcap = pathlib.Path(tempfile.gettempdir()) / f"msm_torch_reorder_{os.getpid()}.pcap"
+    synth_tcp_flows_pcap(rcap, rflows, segment_len=FLOW_SEGMENT, interleave_seed=2,
+                         reorder_seed=3, retransmit_rate=0.05, overlap_rate=0.05, seed=4)
+    rp = read_pcap(rcap)
+    rcap.unlink()
+    return rflows, rp
+
+
+def reorder_stream(matcher, rp, **kw):
+    """Counts of the reorder capture streamed in 1,000-packet slices.  The
+    reorder window is one scan round: the stream holds the whole capture
+    for one round."""
+    from multithreading_string_matching_tpu_torch.io.pcap import slice_pcap
+    from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
+
+    fs = FlowStreamMatcher(matcher, "tcp", engine="window", reorder=True, scan_bytes=1 << 40, **kw)
+    for s in range(0, rp.num_packets, 1000):
+        fs.feed_pcap_slice(slice_pcap(rp, s, s + 1000, copy=False))
+    fs.flush()
+    return fs.counts()
+
+
+def device_busy(prof) -> dict:
+    """Device milliseconds of a torch.profiler run: kernels, copies and the
+    union of both (``busy``); empty when the trace holds no device events."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.name.startswith("Activity Buffer")]
+    if not spans:
+        return {}
+    out = {"kernel_ms": 0.0, "copy_ms": 0.0, "busy_ms": 0.0, "events": len(spans)}
+    for s, e, name in spans:
+        out["copy_ms" if name.startswith(("Memcpy", "Memset")) else "kernel_ms"] += (e - s) / 1e3
+    end = -1.0
+    for s, e, _ in sorted(spans):
+        if e > end:
+            out["busy_ms"] += (e - max(s, end)) / 1e3
+            end = e
+    return out
+
+
+def shard_phase(dev, card: str, cw, ct, big, rules_file, cap2, batch2, big_counts, big_rows,
+                class_filter_ms: float, cap, pat_file, patterns, std_counts) -> list:
+    """Phase 7; returns the kernel record entries of the four shard kernels."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch import cli
+    from multithreading_string_matching_tpu_torch.api import Matcher
+    from multithreading_string_matching_tpu_torch.ops.table import filter_count, table_count
+    from multithreading_string_matching_tpu_torch.parallel.mesh import make_mesh
+    from multithreading_string_matching_tpu_torch.parallel.pattern_shard import (
+        build_pattern_shards,
+        count_matches_pattern_sharded,
+        count_rows_pattern_sharded,
+        count_rows_summary_pattern_sharded,
+        make_2d_mesh,
+        make_pattern_mesh,
+    )
+
+    t_phase = time.perf_counter()
+    P, Ls = batch2.payloads, batch2.lengths
+    head_p, head_l = P[:ROWS_PER_PACKET_RUN], Ls[:ROWS_PER_PACKET_RUN]
+    dup = big.window.dup_map
+    launches = {f"shard_{f}_count_{k}": 0 for f in ("filter", "table") for k in ("totals", "rows")}
+
+    def drive(label, fn, key, n_launch):
+        """One sharded call with the launch counters reset just before:
+        exactly ``n_launch`` launches of ``key`` and none of anything else."""
+        torch.cuda.synchronize()
+        reset_launches(cw, ct)
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
+        print(f"sharded {label}: {wall:.4f} s, launches {got}")
+        check(got == {key: n_launch}, f"sharded {label} launched {got}, not {n_launch} x {key}")
+        launches[key] += n_launch
+        return out
+
+    # -- the pattern axis: totals on one shard and on virtual meshes --------
+    mesh1 = make_pattern_mesh([dev])
+    got = drive("patterns x1 (filter)", lambda: count_matches_pattern_sharded(big, P, Ls, mesh1),
+                "shard_filter_count_totals", 1)
+    check(np.array_equal(got, big_counts), "pattern-sharded totals differ from phase 5's")
+    os.environ["MSM_PALLAS_FILTER"] = "0"
+    got = drive("patterns x1 (table)", lambda: count_matches_pattern_sharded(big, P, Ls, mesh1),
+                "shard_table_count_totals", 1)
+    check(np.array_equal(got, big_counts), "pattern-sharded table totals differ from phase 5's")
+    got = drive("patterns x1 rows (table)",
+                lambda: count_rows_pattern_sharded(big, head_p, head_l, mesh1),
+                "shard_table_count_rows", 1)
+    check(np.array_equal(got, big_rows), "pattern-sharded table rows differ from phase 5's")
+    del os.environ["MSM_PALLAS_FILTER"]
+    mesh4 = make_pattern_mesh([dev] * 4)
+    for label, mesh, n in (("patterns x4", mesh4, 4),
+                           ("patterns x3", make_pattern_mesh([dev] * 3), 3),
+                           ("packets x patterns 2x2", make_2d_mesh(2, 2, [dev] * 4), 4)):
+        got = drive(label, lambda: count_matches_pattern_sharded(big, P, Ls, mesh),
+                    "shard_filter_count_totals", n)
+        check(np.array_equal(got, big_counts), f"{label} totals differ from phase 5's")
+    for label, mesh, n in (("x1", mesh1, 1), ("x4", mesh4, 4)):
+        rows = drive(f"patterns {label} rows",
+                     lambda: count_rows_pattern_sharded(big, head_p, head_l, mesh),
+                     "shard_filter_count_rows", n)
+        check(np.array_equal(rows, big_rows), f"pattern-sharded rows ({label}) differ")
+        tot, hits = drive(f"patterns {label} summary",
+                          lambda: count_rows_summary_pattern_sharded(big, head_p, head_l, mesh),
+                          "shard_filter_count_rows", n)
+        check(np.array_equal(tot[dup], big_rows.sum(axis=0))
+              and np.array_equal(hits, big_rows.sum(axis=1) > 0),
+              f"pattern-sharded summary ({label}) differs from the per-packet counts")
+    print(f"pattern axis: 1, 4, 3 and 2x2 shards = phase 5's totals ({int(big_counts.sum())} "
+          "matches); rows and summary = phase 5's per-packet counts")
+
+    # -- each shard kernel against its plain version --------------------------
+    max_err = {k: 0 for k in launches}
+
+    def compare(key, got, want, name):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"{key} {name}: shape {tuple(got.shape)}")
+        err = int((got.long() - want.long()).abs().max())
+        max_err[key] = max(max_err[key], err)
+        check(err == 0, f"{key} disagrees with the plain version on {name}")
+
+    def block(plan, d):
+        rows = slice(d * plan.S, (d + 1) * plan.S)
+        return (torch.from_numpy(np.ascontiguousarray(plan.words[rows]).view(np.int32)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(plan.masks[rows]).view(np.int32)).to(dev),
+                torch.from_numpy(plan.lens[rows, 0].copy()).to(dev))
+
+    hp, hl = torch.from_numpy(head_p).to(dev), torch.from_numpy(head_l).to(dev)
+    fp, fl = torch.from_numpy(P).to(dev), torch.from_numpy(Ls).to(dev)
+    times = {}
+    for form, plain in (("filter", filter_count), ("table", table_count)):
+        filtered = form == "filter"
+        plan = build_pattern_shards(big.window, 1, filtered=filtered)
+        kern = ct.ShardTableKernel(plan.K, plan.S, plan.use_fit, filtered, dev)
+        tabs = block(plan, 0)
+        tot_key, rows_key = f"shard_{form}_count_totals", f"shard_{form}_count_rows"
+        want_t, plain_t = timed_once(lambda: plain(*tabs, hp, hl, plan.K))
+        compare(tot_key, kern.counts(*tabs, hp, hl), want_t, f"{ROWS_PER_PACKET_RUN} rows")
+        want_r, plain_r = timed_once(lambda: plain(*tabs, hp, hl, plan.K, per_row=True))
+        compare(rows_key, kern.rows(*tabs, hp, hl), want_r, f"{ROWS_PER_PACKET_RUN} rows")
+        full = kern.counts(*tabs, fp, fl)
+        check(np.array_equal(plan.gather(full.cpu().numpy())[dup], big_counts),
+              f"{tot_key} on the whole capture differs from phase 5's counts")
+        times[form] = {
+            "full": cuda_ms(lambda: kern.counts(*tabs, fp, fl), SCAN_RUNS),
+            "totals": cuda_ms(lambda: kern.counts(*tabs, hp, hl), SCAN_RUNS),
+            "rows": cuda_ms(lambda: kern.rows(*tabs, hp, hl), SCAN_RUNS),
+            "plain_totals": plain_t, "plain_rows": plain_r,
+        }
+        print(f"shard {form} kernels (K={plan.K}, S={plan.S}) = plain on {ROWS_PER_PACKET_RUN} "
+              f"rows: totals {int(want_t.sum())}")
+    # Five blocks with padded slots (C=615, S=640): kernels = plain per row.
+    plan5 = build_pattern_shards(big.window, 5, filtered=True)
+    kern5 = ct.ShardTableKernel(plan5.K, plan5.S, plan5.use_fit, True, dev)
+    for d in range(5):
+        tabs = block(plan5, d)
+        want_r = filter_count(*tabs, hp, hl, plan5.K, per_row=True)
+        compare("shard_filter_count_rows", kern5.rows(*tabs, hp, hl), want_r, f"block {d} of 5")
+        compare("shard_filter_count_totals", kern5.counts(*tabs, hp, hl),
+                want_r.sum(dim=0, dtype=torch.int32), f"block {d} of 5")
+        check(not want_r[:, plan5.valid(d):].any(), f"padded slots of block {d} counted")
+    print(f"shard kernels = plain on 5 padded blocks (C={plan5.C}, S={plan5.S})")
+    class_same_ms = cuda_ms(lambda: big.kernels.count_tiles([(fp, fl)]), SCAN_RUNS)
+    nb = int(batch2.total_payload_bytes)
+    for form, t in times.items():
+        print(f"shard {form} totals kernel, resident tile {tuple(fp.shape)}: {t['full']:.4f} ms = "
+              f"{nb / t['full'] * 1e3:.6e} payload B/s (median of {SCAN_RUNS}) [{card}]")
+    print(f"class-route filter kernels, same tile: {class_same_ms:.4f} ms; on phase 5's "
+          f"bucketed tiles: {class_filter_ms:.4f} ms [{card}]")
+    for form, t in times.items():
+        print(f"shard {form} on {ROWS_PER_PACKET_RUN} rows: totals {t['totals']:.4f} ms, rows "
+              f"{t['rows']:.4f} ms (median of {SCAN_RUNS}); plain totals {t['plain_totals']:.4f} "
+              f"ms, rows {t['plain_rows']:.4f} ms (1 run) [{card}]")
+
+    # -- the packet axis through the CLI ----------------------------------------
+    def match(pcap, pats, *flags):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["match", "--pcap", str(pcap), "--patterns", str(pats), "--json",
+                           *flags])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"match {' '.join(flags)} exited {rc}")
+        return json.loads(out.getvalue().splitlines()[-1]), wall
+
+    torch.cuda.synchronize()
+    reset_launches(cw, ct)
+    blob, _ = match(cap, pat_file, "--sharded", "--shard-axis", "packets")
+    got = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
+    check(blob["counts"] == std_counts.tolist(), "match --sharded (packets) differs from phase 3")
+    check(set(got) == {"window_count_totals"}, f"match --sharded (packets) launched {got}")
+    check(blob["execution"]["shard_axis"] == "packets", f"execution {blob['execution']}")
+    print(f"match --sharded --shard-axis packets: phase 3's counts, launches {got}")
+
+    walls = {"match": [], "match --sharded --shard-axis patterns": []}
+    for _ in range(SERIAL_RUNS):
+        for label, flags in (("match", ()),
+                             ("match --sharded --shard-axis patterns",
+                              ("--sharded", "--shard-axis", "patterns"))):
+            blob, wall = match(cap2, rules_file, *flags)
+            check(blob["counts"] == big_counts.tolist(), f"{label} counts differ from phase 5's")
+            walls[label].append(wall)
+    check(blob["execution"]["shard_axis"] == "patterns", f"execution {blob['execution']}")
+    for label, ws in walls.items():
+        print(f"{label} --json ({RULES} rules): median {statistics.median(ws):.4f} s of "
+              f"{SERIAL_RUNS} ({', '.join(f'{w:.4f}' for w in ws)}) [{card}]")
+
+    # -- the sharded flow lanes ---------------------------------------------
+    _, rp = reorder_capture(patterns)
+    std = Matcher(patterns, device=dev)
+    want = reorder_stream(std, rp)
+    torch.cuda.synchronize()
+    reset_launches(cw, ct)
+    got_c = reorder_stream(std, rp, sharded=True, mesh=make_mesh([dev] * 2))
+    got = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
+    check(np.array_equal(got_c, want), "the sharded flow stream differs from the unsharded one")
+    check(set(got) == {"window_count_halo"} and got["window_count_halo"] >= 2,
+          f"the sharded flow stream launched {got}")
+    print(f"sharded flow lanes (2 shards): {int(got_c.sum())} matches = unsharded, launches {got}")
+
+    # -- device busy share of one pattern-sharded count ------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    count_matches_pattern_sharded(big, P, Ls, mesh1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        count_matches_pattern_sharded(big, P, Ls, mesh1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy(prof)
+    if busy:
+        print(f"pattern-sharded count under torch.profiler: {wall:.4f} s wall, device busy "
+              f"{busy['busy_ms']:.4f} ms (kernels {busy['kernel_ms']:.4f} ms, copies "
+              f"{busy['copy_ms']:.4f} ms, {busy['events']} events): busy share "
+              f"{busy['busy_ms'] / 1e3 / wall:.4f} [{card}]")
+    else:
+        print(f"pattern-sharded count under torch.profiler: {wall:.4f} s wall; the trace holds "
+              "no device events: busy share not measured")
+    print(f"phase 7: {time.perf_counter() - t_phase:.3f} s")
+
+    tsrc = "multithreading_string_matching_tpu_torch/csrc/table_count.cu"
+    tref = "multithreading_string_matching_tpu/ops/pallas_table.py"
+    return [{"name": f"shard_{form}_count_{kind}", "route": "cuda", "source": tsrc,
+             "replaces": f"{tref}:{line}", "launches": launches[f"shard_{form}_count_{kind}"],
+             "max_abs_err": max_err[f"shard_{form}_count_{kind}"], "ms": times[form][kind],
+             "plain_ms": times[form][f"plain_{kind}"]}
+            for form in ("filter", "table") for kind, line in (("totals", 474), ("rows", 501))]
+
+
 def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
     """Phase 6; returns the kernel record entry of ``window_count_halo``."""
     import torch
@@ -425,28 +709,9 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
           f"({py_s:.3f} s): {int(counts.sum())} matches; per packet {int(per_packet.sum())}")
 
     # -- reorder, NUL + nocase, the chunk loop, a forced drain ------------
-    rng = np.random.default_rng(SEED + 6)
-    rflows = []
-    for i in range(64):
-        pay = rng.integers(0x20, 0x7F, size=32 << 10, dtype=np.uint8)
-        for _ in range(10):
-            p = patterns[int(rng.integers(0, len(patterns)))]
-            o = int(rng.integers(0, len(pay) - len(p)))
-            pay[o : o + len(p)] = np.frombuffer(p, np.uint8)
-        rflows.append(((f"10.77.{i}.1", "10.77.255.1", 2000 + i, 80), pay.tobytes()))
-    rcap = pathlib.Path(tempfile.gettempdir()) / f"msm_torch_reorder_{os.getpid()}.pcap"
-    synth_tcp_flows_pcap(rcap, rflows, segment_len=FLOW_SEGMENT, interleave_seed=2,
-                         reorder_seed=3, retransmit_rate=0.05, overlap_rate=0.05, seed=4)
-    rp = read_pcap(rcap)
-    rcap.unlink()
-    # The reorder window is one scan round: the stream holds the whole
-    # capture for one round.
-    rfs = FlowStreamMatcher(matcher, "tcp", engine="window", reorder=True, scan_bytes=1 << 40)
+    rflows, rp = reorder_capture(patterns)
     before = cw.LAUNCHES["window_count_halo"]
-    for s in range(0, rp.num_packets, 1000):
-        rfs.feed_pcap_slice(slice_pcap(rp, s, s + 1000, copy=False))
-    rfs.flush()
-    rcounts = rfs.counts()
+    rcounts = reorder_stream(matcher, rp)
     rfb = extract_flows(rp, "tcp", reorder=True)
     rwant = oracle_counts([p for _, p in rflows], patterns)
     check(cw.LAUNCHES["window_count_halo"] > before, "the reorder stream launched no halo kernel")
@@ -891,10 +1156,14 @@ def run(dev) -> int:
     rules_file.write_bytes(b"\n".join(rules) + b"\n")
     check(load_patterns(rules_file) == rules, "the rule file does not load back")
     serial_wall(cli, cap2, rules_file, rules, big_counts, card)
-    rules_file.unlink()
 
     # -- 6. the flow path ---------------------------------------------------
     halo_record = flow_phase(dev, card, patterns, pat_file, cw, ct)
+
+    # -- 7. the sharded path --------------------------------------------------
+    shard_records = shard_phase(dev, card, cw, ct, big, rules_file, cap2, batch2, big_counts,
+                                big_rows, filt_ms, cap, pat_file, patterns, counts)
+    rules_file.unlink()
 
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
     ref = "multithreading_string_matching_tpu/ops/pallas_window.py"
@@ -928,6 +1197,7 @@ def run(dev) -> int:
          "max_abs_err": max_err["filter_count_rows"], "ms": filt_rows_ms,
          "plain_ms": plain_rows_ms["filter"]},
         halo_record,
+        *shard_records,
     ]}
     print(card)
     print(json.dumps(record))

@@ -195,7 +195,10 @@ class Matcher:
         est_states = sum(len(p) for p in dict.fromkeys(self._match_patterns)) + 1
         return est_states * 256 * 4 > self.AC_GOTO_WALL_BYTES
 
-    def _resolve_engine(self, engine: Optional[str]) -> str:
+    def _requested_engine(self, engine: Optional[str]) -> str:
+        """The engine a request names, ``auto`` decided by the JAX package's
+        rule; ``ac`` and ``kmp`` come back as they are (the sharded paths
+        remap them to the window family, as the JAX package does)."""
         engine = engine or self.engine
         if engine not in ENGINES:
             raise ValueError(
@@ -206,6 +209,10 @@ class Matcher:
             engine = "ac" if total_words > 50_000 or max_len > 256 else "pallas"
             if engine == "ac" and max_len <= 256 and self._ac_goto_too_big():
                 engine = "pallas"
+        return engine
+
+    def _resolve_engine(self, engine: Optional[str]) -> str:
+        engine = self._requested_engine(engine)
         if engine in ("ac", "kmp"):
             raise NotImplementedError(
                 f"engine {engine!r} is not yet ported to the torch package "
@@ -216,7 +223,7 @@ class Matcher:
     def explain(self) -> dict:
         """How this matcher will execute (for logs, not for program logic)."""
         unique, max_len, total_words = self._pattern_stats()
-        eng = self._resolve_engine(None)
+        eng = self._requested_engine(None)
         out = {
             "engine_requested": self.engine,
             "engine_resolved": eng,

@@ -5,7 +5,8 @@ Counterpart of ``multithreading_string_matching_tpu/cli.py``::
   python -m multithreading_string_matching_tpu_torch serial <file.pcap> <strings.txt> [udp/tcp]
   python -m multithreading_string_matching_tpu_torch match  --pcap F --patterns F
         [--mode udp|tcp] [--engine auto|pallas|window|ac|kmp] [--nocase]
-        [--vlan] [--ipv6] [--per-packet] [--flows [--reorder] [--stream]] [--json]
+        [--vlan] [--ipv6] [--per-packet] [--flows [--reorder] [--stream]]
+        [--sharded [--shard-axis auto|packets|patterns|both]] [--json]
 
 ``MSM_DEVICE=cpu|cuda`` (default ``cuda``) picks the device, as
 ``MSM_PLATFORM`` does for the JAX package: ``cuda`` runs the hand-written
@@ -15,9 +16,13 @@ Output is byte-compatible with the reference's report (utils/report.py).
 ``match --flows`` reassembles TCP/UDP flows and counts over the streams;
 ``--flows --stream`` is the bounded-memory flow monitor
 (parallel/flow_stream.py), fed ``MSM_FLOW_BATCH`` packets (default 8192) at
-a time, reloading the rules file on SIGHUP.  The other commands (data,
-task, live, mesh, synth) and match's packet streaming, sharding, offset,
-dump and distributed options are not yet ported (ROADMAP).
+a time, reloading the rules file on SIGHUP.  ``--sharded`` spreads the scan
+over a mesh of every device of ``MSM_DEVICE``'s type (each card; one shard
+on the CPU): the packet axis, the pattern axis (each shard holds 1/N of the
+rule set) or both; ``auto`` takes the pattern axis for table-route sets on
+more than one device, the packet axis otherwise.  The other commands (data,
+task, live, mesh, synth) and match's packet streaming, offset, dump and
+distributed options are not yet ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -79,14 +84,28 @@ def cmd_serial(argv: List[str]) -> int:
     return 0
 
 
-def _execution_blob(matcher, actual: str) -> dict:
-    """``matcher.explain()``, corrected to the engine a path really ran
-    (``actual``), as the JAX CLI reports it."""
+def _execution_blob(matcher, sharded: bool = False, attribution: bool = False,
+                    actual: Optional[str] = None, shard_axis: Optional[str] = None) -> dict:
+    """``matcher.explain()``, corrected for the remaps of the path that ran,
+    as the JAX CLI reports it: ``actual``, the engine a path really ran,
+    wins; else sharded attribution and the pattern axis remap ac/kmp to the
+    window family, and the sharded counts run kmp as ac."""
     ex = matcher.explain()
-    if actual != ex["engine_resolved"]:
-        ex["streamed_remap"] = f"{ex['engine_resolved']}->{actual}"
-        ex["engine_resolved"] = actual
-        ex.pop("pallas_kernel", None)
+    if actual is not None:
+        if actual != ex["engine_resolved"]:
+            ex["sharded_remap" if sharded else "streamed_remap"] = (
+                f"{ex['engine_resolved']}->{actual}")
+            ex["engine_resolved"] = actual
+        if actual != "pallas":
+            ex.pop("pallas_kernel", None)
+        return ex
+    if (sharded and (attribution or shard_axis in ("patterns", "both"))
+            and ex["engine_resolved"] in ("ac", "kmp")):
+        ex["sharded_remap"] = f"{ex['engine_resolved']}->window"
+        ex["engine_resolved"] = "window"
+    elif sharded and ex["engine_resolved"] == "kmp":
+        ex["engine_resolved"] = "ac"
+        ex["sharded_remap"] = "kmp->ac"
     return ex
 
 
@@ -110,7 +129,14 @@ def cmd_match(argv: List[str]) -> int:
                         "and drop retransmitted or overlapping bytes (first bytes win)")
     p.add_argument("--stream", action="store_true",
                    help="with --flows: the bounded-memory flow monitor")
-    for flag in ("--offsets", "--sharded", "--distributed"):
+    p.add_argument("--sharded", action="store_true",
+                   help="use every device of MSM_DEVICE's type through a mesh")
+    p.add_argument("--shard-axis", choices=["auto", "packets", "patterns", "both"],
+                   default="auto",
+                   help="with --sharded: packets (data parallel), patterns (each device "
+                        "holds 1/N of the rule set), both (2-D mesh), or auto (patterns "
+                        "for table-route sets on more than one device)")
+    for flag in ("--offsets", "--distributed"):
         p.add_argument(flag, action="store_true", help="not yet ported")
     p.add_argument("--dump-matches", metavar="OUT.pcap", help="not yet ported")
     p.add_argument("--host-workers", type=int, default=0, metavar="N", help="not yet ported")
@@ -119,7 +145,7 @@ def cmd_match(argv: List[str]) -> int:
     if a.per_packet and not a.json:
         raise SystemExit("--per-packet produces an [N, P] matrix: use --json")
     unported = [f for f, on in (("--offsets", a.offsets), ("--dump-matches", a.dump_matches),
-                                ("--sharded", a.sharded), ("--host-workers", a.host_workers),
+                                ("--host-workers", a.host_workers),
                                 ("--distributed", a.distributed),
                                 ("--stream without --flows", a.stream and not a.flows)) if on]
     if unported:
@@ -138,10 +164,21 @@ def cmd_match(argv: List[str]) -> int:
 
     matcher = _build(a.patterns, engine=a.engine, nocase=a.nocase)
     timer = PhaseTimer()
+    shard_axis = a.shard_axis
+    if a.sharded:
+        if shard_axis == "auto":
+            from multithreading_string_matching_tpu_torch.parallel.mesh import default_devices
+            from multithreading_string_matching_tpu_torch.parallel.pattern_shard import (
+                choose_shard_axis,
+            )
+
+            shard_axis = choose_shard_axis(matcher, len(default_devices(matcher.device.type)))
+    elif shard_axis != "auto":
+        raise SystemExit("--shard-axis requires --sharded")
     if a.flows and a.stream:
         return _match_flow_stream(a, matcher, timer)
     if a.flows:
-        return _match_flows(a, matcher, timer)
+        return _match_flows(a, matcher, timer, shard_axis)
 
     from multithreading_string_matching_tpu_torch.io.decode import extract_payloads
     from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
@@ -152,21 +189,81 @@ def cmd_match(argv: List[str]) -> int:
         batch = extract_payloads(pcap, a.mode, pad_n_to=128, pad_len_to=8,
                                  vlan=a.vlan, ipv6=a.ipv6)
     with timer.phase("scan"):
-        counts = matcher.count_batch(batch, per_packet=a.per_packet)
+        if a.sharded and a.per_packet:
+            counts = _sharded_rows(a, matcher, shard_axis, batch.payloads, batch.lengths)
+        elif a.sharded:
+            counts = _sharded_counts(a, matcher, shard_axis, batch.payloads, batch.lengths)
+        else:
+            counts = matcher.count_batch(batch, per_packet=a.per_packet)
     if a.json:
-        _print_json({
+        blob = {
             "patterns": [pt.decode("latin-1") for pt in matcher.patterns],
             "counts": np.asarray(counts).tolist(),
             "packets": batch.num_packets,
             "valid_payloads": int(batch.valid.sum()),
             "payload_bytes": batch.total_payload_bytes,
             "phases": timer.phases,
-            "execution": matcher.explain(),
-        })
+            "execution": _execution_blob(matcher, a.sharded, attribution=a.sharded and a.per_packet,
+                                         shard_axis=shard_axis if a.sharded else None),
+        }
+        if a.sharded:
+            blob["execution"]["shard_axis"] = shard_axis
+        _print_json(blob)
     else:
         _report(matcher, _exact_counts(counts), timer.total)
         print(f"# {timer.summary()}", file=sys.stderr)
     return 0
+
+
+def _sharded_counts(a, matcher, shard_axis: str, payloads, lengths) -> np.ndarray:
+    """Totals over the mesh of ``--shard-axis``: the pattern axis through
+    parallel/pattern_shard.py, the packet axis through parallel/mesh.py
+    (whose AC engine is not yet ported: ``--engine ac`` exits 1 there)."""
+    dev_type = matcher.device.type
+    if shard_axis in ("patterns", "both"):
+        from multithreading_string_matching_tpu_torch.parallel.pattern_shard import (
+            count_matches_pattern_sharded,
+            resolve_shard_mesh,
+        )
+
+        return count_matches_pattern_sharded(
+            matcher, payloads, lengths, resolve_shard_mesh(shard_axis, device_type=dev_type),
+            engine=a.engine)
+    from multithreading_string_matching_tpu_torch.parallel.mesh import (
+        count_matches_sharded,
+        make_mesh,
+    )
+
+    eng = matcher._requested_engine(a.engine)
+    if eng == "kmp":
+        eng = "ac"
+    return count_matches_sharded(
+        None, matcher._maybe_fold(payloads), lengths, make_mesh(device_type=dev_type),
+        dup_map=matcher.window.dup_map, engine=eng, window=matcher.window,
+        pallas_matcher=matcher.kernels if eng == "pallas" else None)
+
+
+def _sharded_rows(a, matcher, shard_axis: str, payloads, lengths) -> np.ndarray:
+    """``--per-packet`` over the mesh: rows stay with their packet shard;
+    the window family only (ac/kmp remap to the window form)."""
+    row_eng = "pallas" if matcher._requested_engine(a.engine) == "pallas" else "window"
+    dev_type = matcher.device.type
+    if shard_axis in ("patterns", "both"):
+        from multithreading_string_matching_tpu_torch.parallel.pattern_shard import (
+            count_rows_pattern_sharded,
+            resolve_shard_mesh,
+        )
+
+        return count_rows_pattern_sharded(
+            matcher, payloads, lengths, resolve_shard_mesh(shard_axis, device_type=dev_type),
+            engine=row_eng)
+    from multithreading_string_matching_tpu_torch.parallel.mesh import (
+        count_rows_sharded,
+        make_mesh,
+    )
+
+    return count_rows_sharded(matcher, payloads, lengths, make_mesh(device_type=dev_type),
+                              engine=row_eng)
 
 
 def _print_json(blob: dict) -> None:
@@ -175,7 +272,7 @@ def _print_json(blob: dict) -> None:
     print(json.dumps(blob))
 
 
-def _match_flows(a, matcher, timer) -> int:
+def _match_flows(a, matcher, timer, shard_axis: str) -> int:
     """One-shot ``--flows``: reassemble every flow, count over the streams."""
     from multithreading_string_matching_tpu_torch.io.flows import extract_flows
     from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
@@ -185,7 +282,13 @@ def _match_flows(a, matcher, timer) -> int:
     with timer.phase("extract"):
         fb = extract_flows(pcap, a.mode, reorder=a.reorder, ipv6=a.ipv6, vlan=a.vlan)
     with timer.phase("scan"):
-        counts = matcher.count(fb.payloads, fb.lengths)
+        if a.sharded and fb.num_flows == 0:
+            # The answer for a capture without flows is known.
+            counts = np.zeros(len(matcher.patterns), np.int64)
+        elif a.sharded:
+            counts = _sharded_counts(a, matcher, shard_axis, fb.payloads, fb.lengths)
+        else:
+            counts = matcher.count(fb.payloads, fb.lengths)
     if a.json:
         _print_json({
             "patterns": [pt.decode("latin-1") for pt in matcher.patterns],
@@ -195,7 +298,8 @@ def _match_flows(a, matcher, timer) -> int:
             "packets": fb.num_packets,
             "stream_bytes": fb.total_payload_bytes,
             "phases": timer.phases,
-            "execution": matcher.explain(),
+            "execution": _execution_blob(matcher, a.sharded,
+                                         shard_axis=shard_axis if a.sharded else None),
         })
     else:
         _report(matcher, _exact_counts(counts), timer.total)
@@ -225,8 +329,13 @@ def _match_flow_stream(a, matcher, timer) -> int:
     from multithreading_string_matching_tpu_torch.utils.report import format_report
 
     fse = _flow_stream_engine(a, matcher)
+    if a.sharded and a.shard_axis in ("patterns", "both"):
+        # Only an explicit request errors (auto takes the lane axis here):
+        # each lane's carried tail pins it to one shard.
+        raise SystemExit("--flows --stream shards the flow-lane axis only: drop "
+                         "--shard-axis or use --shard-axis packets")
     fs = FlowStreamMatcher(matcher, a.mode, engine=fse, reorder=a.reorder, ipv6=a.ipv6,
-                           vlan=a.vlan)
+                           vlan=a.vlan, sharded=a.sharded)
     reload_flag = {"hup": False}
     old_hup = None
     if hasattr(signal, "SIGHUP"):

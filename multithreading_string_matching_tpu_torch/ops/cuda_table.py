@@ -6,13 +6,15 @@ replace the TPU's table and filter kernels, totals (``_class_call``, with
 and without the repeats grid axis) and per row (``_one_tile_rows``); each
 launch counts one word-count class (ops/table.py).  The library is built
 with ``nvcc`` from the checkout on first use (ops/_build.py) and bound with
-ctypes.
+ctypes.  :class:`ShardTableKernel` launches the same kernels on one pattern
+shard's table block: the TPU's ``ShardTableKernel.counts`` and ``.rows``.
 
 The wrappers take the plain versions (ops/table.table_count and
 filter_count) for tensors on the CPU and launch the kernel for tensors on a
 CUDA device; on a CUDA tensor they launch or raise, never fall back.
 ``LAUNCHES`` counts kernel launches by name (a totals launch with
-``reps > 1`` counts as ``<name>_repeated``).
+``reps > 1`` counts as ``<name>_repeated``, a :class:`ShardTableKernel`
+launch as ``shard_<name>``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,10 @@ LAUNCHES: Dict[str, int] = {
     "table_count_totals": 0, "table_count_rows": 0,
     "filter_count_totals": 0, "filter_count_rows": 0,
     "table_count_totals_repeated": 0, "filter_count_totals_repeated": 0,
+    # ShardTableKernel's launches (pattern-sharded path), apart from the
+    # class route's.
+    "shard_table_count_totals": 0, "shard_table_count_rows": 0,
+    "shard_filter_count_totals": 0, "shard_filter_count_rows": 0,
 }
 
 # payload, lengths, words, masks, lens, out, n, L, U, K, kw
@@ -72,7 +78,8 @@ def _check(payload, lengths, words, masks, lens, K: int, filtered: bool) -> None
         raise ValueError(f"word count K={K} outside the kernels' 1..512")
 
 
-def _launch(name: str, payload, lengths, words, masks, lens, out, K: int, reps: int = 1) -> None:
+def _launch(name: str, payload, lengths, words, masks, lens, out, K: int, reps: int = 1,
+            counter: str = "") -> None:
     n, L = payload.shape
     U, kw = words.shape
     if n == 0 or L == 0 or U == 0:
@@ -83,25 +90,26 @@ def _launch(name: str, payload, lengths, words, masks, lens, out, K: int, reps: 
     if name.endswith("_totals"):
         args.append(reps)
     LIBRARY.call(f"msm_{name}", *args, payload.device.index or 0, stream)
-    LAUNCHES[name if reps == 1 else f"{name}_repeated"] += 1
+    LAUNCHES[counter or (name if reps == 1 else f"{name}_repeated")] += 1
 
 
-def _totals(name: str, plain, payload, lengths, words, masks, lens, K: int, reps: int):
+def _totals(name: str, plain, payload, lengths, words, masks, lens, K: int, reps: int,
+            counter: str = ""):
     if device_kind(payload, name.replace("_", "-")) == "cpu":
         return plain(words, masks, lens, payload, lengths, K) * reps
     _check(payload, lengths, words, masks, lens, K, name == "filter_count")
     check_totals_bound(payload, reps)
     out = torch.zeros(words.shape[0], dtype=torch.int32, device=payload.device)
-    _launch(f"{name}_totals", payload, lengths, words, masks, lens, out, K, reps)
+    _launch(f"{name}_totals", payload, lengths, words, masks, lens, out, K, reps, counter)
     return out
 
 
-def _rows(name: str, plain, payload, lengths, words, masks, lens, K: int):
+def _rows(name: str, plain, payload, lengths, words, masks, lens, K: int, counter: str = ""):
     if device_kind(payload, name.replace("_", "-")) == "cpu":
         return plain(words, masks, lens, payload, lengths, K, per_row=True)
     _check(payload, lengths, words, masks, lens, K, name == "filter_count")
     out = torch.zeros((payload.shape[0], words.shape[0]), dtype=torch.int32, device=payload.device)
-    _launch(f"{name}_rows", payload, lengths, words, masks, lens, out, K)
+    _launch(f"{name}_rows", payload, lengths, words, masks, lens, out, K, counter=counter)
     return out
 
 
@@ -173,3 +181,64 @@ class CudaTableMatcher(TileCountSurface):
             raise ValueError("swap_tables: pattern-set geometry differs")
         self.classes = classes
         self._stage(wp, inv)
+
+    def _copy_to(self, device) -> "CudaTableMatcher":
+        return CudaTableMatcher(self.wp, device, filtered=self.filtered,
+                                assume_zero_padded=self._assume_zero_padded)
+
+
+class ShardTableKernel:
+    """The table or filter kernels at one fixed geometry, for one pattern
+    shard (parallel/pattern_shard.py): the counterpart of the JAX package's
+    ``ShardTableKernel``.
+
+    Each call takes one shard's ``[S, K(+1)]`` table block as data, at the
+    whole set's ``K = K_max``: every pattern runs the full K-word chain, and
+    the words past a pattern's end (word 0, mask 0) compare true.  Padded
+    slots hold word 0, mask 0 and a length of ``2**30``, which no position
+    fits; with ``filtered`` their filter column is the never-fires sentinel
+    (word 1, mask 0).  Either way they count 0.
+
+    On CUDA tensors a call launches one kernel of ``csrc/table_count.cu``
+    and adds one to ``LAUNCHES["shard_<form>_count_<totals|rows>"]``, not to
+    the class route's keys; on CPU tensors it takes the plain version.
+    ``use_fit`` is the plan's and changes nothing: the kernels and the plain
+    versions always apply the fit mask.
+    """
+
+    def __init__(self, K: int, S: int, use_fit: bool, filtered: bool, device="cuda"):
+        if K < 1 or K > 512:
+            raise ValueError(f"word count K={K} outside the kernels' 1..512")
+        if S < 1:
+            raise ValueError(f"shard size S={S} must be positive")
+        self.K = K
+        self.S = S
+        self.use_fit = use_fit
+        self.filtered = filtered
+        self.device = torch.device(device)
+        self._name = "filter_count" if filtered else "table_count"
+        self._plain = filter_count if filtered else table_count
+
+    def _block(self, words, masks, lens):
+        kw = self.K + (1 if self.filtered else 0)
+        if tuple(words.shape) != (self.S, kw) or tuple(masks.shape) != (self.S, kw):
+            raise ValueError(
+                f"shard block must be [{self.S}, {kw}]: words {tuple(words.shape)}, "
+                f"masks {tuple(masks.shape)}"
+            )
+        if lens.numel() != self.S:
+            raise ValueError(f"shard lens has {lens.numel()} entries for S={self.S}")
+        return lens.reshape(self.S)
+
+    def counts(self, words, masks, lens, payloads, lengths) -> torch.Tensor:
+        """int32[S] totals of this shard's block over one tile, in slot order
+        (there is no class permutation)."""
+        lens = self._block(words, masks, lens)
+        return _totals(self._name, self._plain, payloads, lengths, words, masks, lens, self.K, 1,
+                       counter=f"shard_{self._name}_totals")
+
+    def rows(self, words, masks, lens, payloads, lengths) -> torch.Tensor:
+        """int32[n, S] per-row counts of this shard's block over one tile."""
+        lens = self._block(words, masks, lens)
+        return _rows(self._name, self._plain, payloads, lengths, words, masks, lens, self.K,
+                     counter=f"shard_{self._name}_rows")

@@ -89,6 +89,13 @@ def check_totals_bound(payload, reps: int) -> None:
         )
 
 
+def canonical_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its card index: a bare ``cuda``
+    is card 0, where the wrappers launch a tensor on it."""
+    d = torch.device(device)
+    return torch.device("cuda", 0) if d.type == "cuda" and d.index is None else d
+
+
 def device_kind(t: torch.Tensor, kernel: str = "window-count") -> str:
     """``"cpu"`` (plain version) or ``"cuda"`` (kernel); raise otherwise."""
     if t.device.type not in ("cpu", "cuda"):
@@ -177,8 +184,9 @@ class TileCountSurface:
 
     Subclasses set ``wp``, ``device``, ``num_unique`` and ``dup`` (the
     ``dup_map`` on the device) and implement ``_tile_totals(p, l, reps)``,
-    int32[U] build-order totals times ``reps``, and ``_tile_rows(p, l)``,
-    int32[n, U] build-order per-row counts.  ``expand_duplicates`` maps
+    int32[U] build-order totals times ``reps``, ``_tile_rows(p, l)``,
+    int32[n, U] build-order per-row counts, and ``_copy_to(device)``, the
+    same surface on another device.  ``expand_duplicates`` maps
     build order to pattern-file order through ``dup``.
     """
 
@@ -218,6 +226,21 @@ class TileCountSurface:
         rows = self._tile_rows(*self._tile(payloads, lengths))
         return rows.sum(dim=0, dtype=torch.int32), rows.sum(dim=1) > 0
 
+    def on_device(self, device) -> "TileCountSurface":
+        """This surface with its tables on ``device`` (a mesh shard's): itself
+        when they are there already, else a copy made once, kept, and made
+        again once the program changes (``swap_tables``)."""
+        device = canonical_device(device)
+        if device == canonical_device(self.device):
+            return self
+        copies = getattr(self, "_copies", None)
+        if copies is None:
+            copies = self._copies = {}
+        copy = copies.get(device)
+        if copy is None or copy.wp is not self.wp:
+            copy = copies[device] = self._copy_to(device)
+        return copy
+
 
 class CudaWindowMatcher(TileCountSurface):
     """Tile-count surface over the window kernels, for one pattern program
@@ -239,6 +262,9 @@ class CudaWindowMatcher(TileCountSurface):
 
     def _tile_rows(self, p, l) -> torch.Tensor:
         return window_count_rows(p, l, self.words, self.masks, self.lens)
+
+    def _copy_to(self, device) -> "CudaWindowMatcher":
+        return CudaWindowMatcher(self.wp, device)
 
     # -- flow-halo rounds -------------------------------------------------
 

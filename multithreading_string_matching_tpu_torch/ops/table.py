@@ -2,7 +2,8 @@
 PyTorch versions of the table and filter kernels.
 
 Counterpart of the host side of ``multithreading_string_matching_tpu/ops/
-pallas_table.py`` (``_filter_words``, ``_PatternClass``, ``_partition``).
+pallas_table.py`` (``_filter_words``, ``_PatternClass``, ``_partition``,
+``plan_shard_geometry``).
 The unique patterns are split by word count ``K = ceil(len / 4)`` with a
 stable sort, one contiguous table per class, so that every word a kernel
 compares is a word of the pattern; ``inv`` maps class-sorted order back to
@@ -23,6 +24,7 @@ words only where the filter fired.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -117,6 +119,26 @@ def partition(wp: WindowProgram, filtered: bool, assume_zero_padded: bool = Fals
                                     np.ascontiguousarray(masks),
                                     wp.pat_lens[sel].astype(np.int32)))
     return classes, inv, use_fit
+
+
+# The JAX package's in-loop unroll and SMEM pattern block (its
+# ops/pallas_table.py), measured on a TPU.  Kept only so that a pattern
+# shard's padded size S, and with it PatternShardPlan's layout, equals the
+# JAX package's; the CUDA kernels need no padding.
+UNROLL = 16
+PATTERN_BLOCK = 128
+
+
+def plan_shard_geometry(C: int, unroll: int = UNROLL, block: int = PATTERN_BLOCK):
+    """``(S, pb, nblocks)`` for a pattern shard of ``C`` real patterns: the
+    padded shard size ``S = nblocks * pb`` that every shard's table block
+    shares (parallel/pattern_shard.py), by the JAX package's padding
+    algebra.  On the card a padded slot costs at most ``pb - 1`` probes."""
+    q = math.lcm(unroll, 8)
+    block = -(-block // q) * q
+    pb = min(block, -(-max(C, 1) // q) * q)
+    nblocks = -(-max(C, 1) // pb)
+    return nblocks * pb, pb, nblocks
 
 
 def _u32(t: torch.Tensor, device) -> torch.Tensor:

@@ -21,9 +21,14 @@ fixed-width sub-lanes; the matcher's ``window`` engine takes the plain
 version on its device.  Counts stay on the device as int32 across rounds
 and drain to host int64 before they can wrap.
 
-Not yet ported (ROADMAP): ``engine="ac"`` (``ops/scan.py``),
-``sharded=True`` (``parallel/mesh.py``), ``collect_offsets=True``
-(``find_matches``) and ``save``/``load`` (``parallel/stream.py``).
+``sharded=True`` splits each single-dispatch round's sub-lanes over a mesh
+(``mesh=``, default: every device of the matcher's type) through
+``parallel/mesh.count_flow_round_sharded``; the chunk loop stays on the
+matcher's device, as in the JAX package.
+
+Not yet ported (ROADMAP): ``engine="ac"`` (``ops/scan.py``), sharded or
+not, ``collect_offsets=True`` (``find_matches``) and ``save``/``load``
+(``parallel/stream.py``).
 """
 
 from __future__ import annotations
@@ -88,11 +93,6 @@ class FlowStreamMatcher:
             )
         if mesh is not None and not sharded:
             raise ValueError("mesh= is only meaningful with sharded=True")
-        if sharded:
-            raise NotImplementedError(
-                "sharded flow rounds are not yet ported to the torch package "
-                "(ROADMAP Queue 1 item 11: parallel/mesh.py)"
-            )
         if collect_offsets:
             raise NotImplementedError(
                 "collect_offsets is not yet ported to the torch package "
@@ -116,6 +116,21 @@ class FlowStreamMatcher:
         self.scan_bytes = scan_bytes
         self.width = width
         self.min_lanes = min_lanes
+        self.sharded = sharded
+        if sharded:
+            # Flow lanes shard over the mesh: each round's sub-lanes split by
+            # row, one sum merges the counts; lane tails are host state, so
+            # no state crosses rounds on a device.  Lane counts round up to
+            # the device count so the shards are even.
+            from multithreading_string_matching_tpu_torch.parallel.mesh import make_mesh
+
+            self.mesh = mesh if mesh is not None else make_mesh(
+                device_type=matcher.device.type)
+            self._n_dev = int(self.mesh.devices.size)
+            self.min_lanes = max(min_lanes, self._n_dev)
+        else:
+            self.mesh = None
+            self._n_dev = 1
         self._states: dict = {}      # key -> (tail bytes, real fill)
         self._pending: dict = {}     # key -> bytearray, or [(seq, bytes)] with reorder
         self._pending_bytes = 0
@@ -269,6 +284,9 @@ class FlowStreamMatcher:
                 return
         flows = [k for k, b in self._pending.items() if b]
         F = _pow2(len(flows), self.min_lanes)
+        # Sharded rounds split the lanes over the mesh: a device-count
+        # multiple (a non-pow2 min_lanes or device count would not divide).
+        F = -(-F // self._n_dev) * self._n_dev
         H = max(int(self.matcher.window.max_len) - 1, 1)
         halo_b = np.zeros((F, H), np.uint8)
         fill_v = np.zeros(F, np.int32)
@@ -382,16 +400,27 @@ class FlowStreamMatcher:
         """One round in one dispatch: device int32[U] counts in build order
         (expanded at drain).  The halo kernel over the round re-laid as
         sub-lanes (``_expand_round_lanes``) when the matcher's engine is
-        ``pallas``; else the plain window form over the flat round."""
+        ``pallas``; else the plain window form over the flat round.  With
+        ``sharded`` the sub-lanes split over the mesh, each shard running
+        either form on its device."""
         fold = self.matcher._maybe_fold
         self._round_positions = buf.shape[0] * (buf.shape[1] + halo_b.shape[1])
-        if self._use_halo_kernel():
+        use_halo = self._use_halo_kernel()
+        if use_halo or self.sharded:
             x2, eff2, ms2 = self._expand_round_lanes(fold(buf), rel, fold(halo_b), fill_v,
                                                      self.width)
             # The drain guard bounds the positions really scanned: the
             # sub-lane tile (pow2 nch, repeated halos) can be over twice
             # the flat round.
             self._round_positions = x2.shape[0] * x2.shape[1]
+        if self.sharded:
+            from multithreading_string_matching_tpu_torch.parallel.mesh import (
+                count_flow_round_sharded,
+            )
+
+            return count_flow_round_sharded(self.matcher, x2, eff2, ms2, self.mesh,
+                                            engine="pallas" if use_halo else "window")
+        if use_halo:
             return self.matcher.halo_kernels.count_tile_halo(
                 self._device_tile(x2), self._device_tile(eff2), self._device_tile(ms2))
         counts, _ = window_stream_chunk(

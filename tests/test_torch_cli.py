@@ -106,8 +106,14 @@ def test_package_never_imports_jax(capture):
         "from multithreading_string_matching_tpu_torch import cli\n"
         "from multithreading_string_matching_tpu_torch.ops import cuda_window, window, bucketing\n"
         "from multithreading_string_matching_tpu_torch.io import flows\n"
-        "from multithreading_string_matching_tpu_torch.parallel import flow_stream\n"
+        "from multithreading_string_matching_tpu_torch.parallel import flow_stream, mesh\n"
+        "from multithreading_string_matching_tpu_torch.parallel import pattern_shard as ps\n"
         f"assert cli.main(['serial', {str(capture)!r}, {str(STANDIN)!r}, 'udp']) == 0\n"
+        "pm = m.Matcher([b'ab', b'ba', b'abc'], device='cpu')\n"
+        "c = ps.count_matches_pattern_sharded(pm, [[97, 98, 97, 99]], [4],\n"
+        "                                     ps.make_2d_mesh(1, 2, ['cpu'] * 2))\n"
+        "assert c.tolist() == [1, 1, 0], c\n"
+        "assert mesh.count_rows_summary(pm, [[97, 98]], [2], mesh.make_mesh(['cpu']))[0][0] == 1\n"
         "fs = flow_stream.FlowStreamMatcher(m.Matcher([b'ab'], device='cpu'), 'udp',\n"
         "                                   engine='window')\n"
         f"fs.feed_pcap_slice(m.read_pcap({str(capture)!r}))\n"

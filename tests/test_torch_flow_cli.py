@@ -110,7 +110,7 @@ def test_flows_text_report_equals_jax(capture, capsys, monkeypatch, flags):
 @pytest.mark.parametrize("flags", [
     ["--flows", "--offsets"],
     ["--flows", "--dump-matches", "x.pcap"],
-    ["--flows", "--sharded"],
+    ["--flows", "--sharded", "--offsets"],
     ["--flows", "--stream", "--host-workers", "2"],
     ["--flows", "--stream", "--distributed"],
     ["--stream"],

@@ -296,8 +296,8 @@ def test_unported_options_raise(captures):
     m = Matcher(PATS, device="cpu")
     with pytest.raises(NotImplementedError, match="ops/scan.py"):
         FlowStreamMatcher(m, "tcp")  # engine="ac" is the JAX default
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        FlowStreamMatcher(m, "tcp", engine="window", sharded=True)
+    with pytest.raises(NotImplementedError, match="ops/scan.py"):
+        FlowStreamMatcher(m, "tcp", sharded=True)  # sharded AC lanes
     with pytest.raises(NotImplementedError, match="find_matches"):
         FlowStreamMatcher(m, "tcp", engine="window", collect_offsets=True)
     fs = FlowStreamMatcher(m, "tcp", engine="window")

@@ -335,3 +335,106 @@ def test_flow_stream_on_card_equals_cpu(cuda_device, tmp_path, pats):
         launched = cw.LAUNCHES["window_count_halo"] - before["window_count_halo"]
         assert launched == (fs._round if dev != "cpu" else 0)
     assert np.array_equal(out["cpu"], out[str(cuda_device)]) and out["cpu"].sum() > 100
+
+
+# -- the pattern-shard kernels (ShardTableKernel) ------------------------------
+
+# name: (patterns, shards, seed, rows, width, alphabet)
+SHARD_CASES = {
+    "padded-slots": ([b"abc", b"bcab", b"cabca", b"ab"], 1, 51, 64, 256, b"abc"),
+    "short-in-k8": ([b"a", b"ab", b"abc", b"abcabcabcabcabcabcabcabcabcabca"], 2, 52, 64, 300,
+                    b"abc"),
+    "nul-not-zero-filled": (NUL + [b"a\x00b\x00c\x00d"], 3, 53, 40, 90, b"ab\x00"),
+    "k-max-64": ([b"a" * 36, b"ab" * 32, b"b" * 132, b"ab" * 128, b"ab", b"b"], 2, 54, 12, 5000,
+                 b"ab"),
+    "mixed-k1-8": (MIXED_K, 4, 55, 64, 300, b"abc"),
+    "rs3072": (RS, 1, 56, 64, 256, b"rs0123"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHARD_CASES))
+def test_shard_kernels_equal_plain(cuda_device, case):
+    """Each shard block's totals and per-row counts, table and filter
+    forms, equal the plain versions; padded slots count 0; the launches go
+    to the shard keys, not the class route's."""
+    from multithreading_string_matching_tpu_torch.parallel.pattern_shard import (
+        build_pattern_shards,
+    )
+
+    pats, n_sh, seed, n, L, alphabet = SHARD_CASES[case]
+    p, ln = _tile(seed, n, L, alphabet, cuda_device, plant=pats)
+    wp = WindowProgram.build(pats)
+    for filtered in (False, True):
+        plan = build_pattern_shards(wp, n_sh, filtered=filtered)
+        kern = ct.ShardTableKernel(plan.K, plan.S, plan.use_fit, filtered, cuda_device)
+        plain = filter_count if filtered else table_count
+        form = "filter" if filtered else "table"
+        before = dict(ct.LAUNCHES)
+        found = 0
+        for d in range(n_sh):
+            rows = slice(d * plan.S, (d + 1) * plan.S)
+            w, m = (torch.from_numpy(np.ascontiguousarray(a[rows]).view(np.int32)).to(cuda_device)
+                    for a in (plan.words, plan.masks))
+            lens = torch.from_numpy(plan.lens[rows]).to(cuda_device)
+            want = plain(w, m, lens.view(-1), p, ln, plan.K)
+            got = kern.counts(w, m, lens, p, ln)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and torch.equal(got, want), (form, d)
+            assert not got[plan.valid(d):].any()
+            got_rows = kern.rows(w, m, lens, p, ln)
+            torch.cuda.synchronize()
+            assert torch.equal(got_rows, plain(w, m, lens.view(-1), p, ln, plan.K, per_row=True))
+            found += int(got.sum())
+        assert found > 0
+        for k, v in ct.LAUNCHES.items():
+            added = n_sh if k in (f"shard_{form}_count_totals", f"shard_{form}_count_rows") else 0
+            assert v == before[k] + added, (form, k)
+
+
+def test_pattern_sharded_virtual_meshes_on_card(cuda_device):
+    """A 4-shard and a 2x2 mesh on one card through the pattern-sharded
+    entry points, and a 2-shard flow round, equal the CPU's plain counts;
+    one shard kernel launch per shard and call."""
+    from multithreading_string_matching_tpu_torch.parallel.mesh import (
+        count_flow_round_sharded,
+        make_mesh,
+    )
+    from multithreading_string_matching_tpu_torch.parallel.pattern_shard import (
+        count_matches_pattern_sharded,
+        count_rows_pattern_sharded,
+        count_rows_summary_pattern_sharded,
+        make_2d_mesh,
+        make_pattern_mesh,
+    )
+
+    pats = RS[:400] + MIXED_K
+    rng = np.random.default_rng(57)
+    payloads = rng.integers(0, 256, size=(300, 400)).astype(np.uint8)
+    for _ in range(1500):
+        pat = pats[int(rng.integers(0, len(pats)))]
+        r, o = int(rng.integers(0, 300)), int(rng.integers(0, 400 - len(pat)))
+        payloads[r, o : o + len(pat)] = np.frombuffer(pat, np.uint8)
+    lengths = rng.integers(0, 401, size=300).astype(np.int32)
+    gpu, cpu = Matcher(pats, device=cuda_device), Matcher(pats, device="cpu")
+    want = cpu.count(payloads, lengths)
+    want_rows = cpu.count(payloads, lengths, per_packet=True)
+    assert want.sum() > 500
+    for mesh, shards in ((make_pattern_mesh([cuda_device] * 4), 4),
+                         (make_2d_mesh(2, 2, [cuda_device] * 4), 4)):
+        before = dict(ct.LAUNCHES)
+        got = count_matches_pattern_sharded(gpu, payloads, lengths, mesh)
+        assert np.array_equal(got, want)
+        assert ct.LAUNCHES["shard_filter_count_totals"] == before["shard_filter_count_totals"] + shards
+        assert ct.LAUNCHES["filter_count_totals"] == before["filter_count_totals"]
+        assert np.array_equal(count_rows_pattern_sharded(gpu, payloads, lengths, mesh), want_rows)
+        tot, hits = count_rows_summary_pattern_sharded(gpu, payloads, lengths, mesh)
+        assert np.array_equal(tot[gpu.window.dup_map], want)
+        assert np.array_equal(hits, want_rows.sum(axis=1) > 0)
+    wp, H, x, eff, ms = _halo_lanes(*HALO_CASES["small"], "cpu")
+    m = Matcher([b"ab", b"bca", b"aaaa", b"abcab"], device=cuda_device)
+    before = cw.LAUNCHES["window_count_halo"]
+    got = count_flow_round_sharded(m, x.numpy(), eff.numpy(), ms.numpy(),
+                                   make_mesh([cuda_device] * 2), engine="pallas")
+    torch.cuda.synchronize()
+    assert cw.LAUNCHES["window_count_halo"] == before + 2
+    assert torch.equal(got.cpu(), window_count_halo_plain(x, eff, ms, H, wp.tables("cpu")))
