@@ -64,14 +64,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    versions, ``match --sharded --shard-axis patterns`` against unsharded
    ``match`` (median of 3), and the device busy share of one
    pattern-sharded count (torch.profiler).
+8. The matrix-unit measurement path (``tools/mxu_match.py``, the port of
+   ``bench/mxu_match.py``): ``mxu_count`` (int8 tensor cores) equals its
+   plain version on ragged widths and row counts, U = 1, 127, 128, 129 and
+   3,072, 1-byte patterns and m_max = 99, a packed tile, a zero-row tile and
+   reps = 3.  With the launch counter reset just before, the tool's three
+   pattern sets over its corpus and the stand-in set over phase 3's resident
+   tiles must launch ``mxu_count`` once per tile and call, and give the
+   table kernel's totals, phase 3's counts and, on the first rows, a
+   pure-Python count.  Times: the kernel over phase 3's tiles (median of
+   20) against the plain version (1 run), the tool's rows (mxu and table
+   rates per set), ``torch._int_mm`` on the score product alone for the
+   first 1,024 rows of one tile beside the kernel on the same rows, and
+   the mxu, table and window kernels over phase 3's tiles alternated over
+   ``ALT_ROUNDS`` rounds.
 
-The line before the last is one JSON object with a record per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with a record per kernel, each
+with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
+operations over the peak rate for their type, ``bound_by`` which) and, where
+one PyTorch call computes a yardstick, ``library_ms``; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -86,12 +104,15 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from multithreading_string_matching_tpu_torch.utils.timing import card_line, cuda_ms
+
 SEED = 1
 MAIN_PACKETS = 100_000
 ROWS_PER_PACKET_RUN = 8192
 SCAN_RUNS = 20
 PLAIN_RUNS = 5
 SERIAL_RUNS = 3
+ALT_ROUNDS = 6
 RULES = 3072
 ALNUM = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
 
@@ -101,31 +122,94 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def card_line() -> str:
+# The least time the card could take for a kernel's work (the ``bound_ms`` of
+# each record): the larger of its bytes (each input read once, each output
+# written once) over the device memory rate and its operations over the
+# peak rate for their type.  H100 SXM rates from NVIDIA's data sheet (the
+# int8 tensor rate is tools/mxu_match.INT8_TENSOR_OPS_PER_S).
+HBM_BYTES_PER_S = 3.35e12
+SMS, INT32_LANES_PER_SM = 132, 64
+
+
+@functools.lru_cache(maxsize=1)
+def int32_ops_per_s() -> float:
+    """132 SMs x 64 INT32 lanes x ``clocks.max.sm``: derived from the card's
+    clock, not a published rate."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    return out.stdout.strip().splitlines()[0]
+    mhz = float(out.stdout.strip().splitlines()[0])
+    print(f"int32 rate: {SMS} SMs x {INT32_LANES_PER_SM} lanes x {mhz:.0f} MHz = "
+          f"{SMS * INT32_LANES_PER_SM * mhz * 1e6:.6e} ops/s (derived, not published)")
+    return SMS * INT32_LANES_PER_SM * mhz * 1e6
 
 
-def cuda_ms(fn, runs: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` between CUDA events on the current stream."""
+def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+    """``{"bound_ms", "bound_by"}`` of a kernel that moves ``nbytes`` and
+    does ``ops`` operations of a type the card runs at ``ops_per_s``."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def window_bound(wp, tiles, nbytes: int, out_ints: int, reps: int = 1) -> dict:
+    """Window kernels over ``tiles`` (``nbytes`` real positions), ``reps``
+    times: a pattern's chain stops at its first mismatched word, so the
+    int32 operations are those of the table kernels' word-0 probe and
+    chain (:func:`compare_ops`)."""
+    ops = reps * compare_ops(wp, tiles, nbytes, filtered=False)
+    return bound(nbytes + 4 * out_ints, ops, int32_ops_per_s())
+
+
+def probe_hits(tiles, words: np.ndarray, masks: np.ndarray) -> np.ndarray:
+    """Per pattern, the real payload positions of ``tiles`` whose 4-byte
+    little-endian word (bytes past the row's width read as 0) equals its
+    probe word under its mask.  A tile is ``(payload, lengths)``, its
+    positions ``[0, lengths[r])``, or ``(payload, lengths, starts)``, its
+    positions ``[starts[r], lengths[r])``."""
     import torch
+    import torch.nn.functional as F
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    vals = []
+    for p, l, *s in tiles:
+        x = F.pad(p, (0, 3)).to(torch.int64)
+        L = p.shape[1]
+        w = x[:, :L] | (x[:, 1:L + 1] << 8) | (x[:, 2:L + 2] << 16) | (x[:, 3:L + 3] << 24)
+        pos = torch.arange(L, device=p.device)[None, :]
+        keep = pos < l[:, None]
+        if s:
+            keep &= pos >= s[0][:, None]
+        vals.append(w[keep])
+    w = torch.sort(torch.cat(vals)).values
+    hits = np.zeros(len(words), np.int64)
+    full = masks.astype(np.uint32) == 0xFFFFFFFF
+    fw = torch.from_numpy(words[full].astype(np.int64)).to(w.device)
+    hits[full] = (torch.searchsorted(w, fw, right=True) - torch.searchsorted(w, fw)).cpu().numpy()
+    for u in np.flatnonzero(~full):
+        hits[u] = int(((w & int(masks[u])) == int(words[u])).sum())
+    return hits
+
+
+def compare_ops(wp, tiles, nbytes: int, filtered: bool) -> int:
+    """int32 operations of the compare kernels over ``tiles`` (``nbytes``
+    real positions): one probe (a masked 32-bit compare, 2 ops) per (real
+    position, pattern), then the verify chain on the probe hits these
+    inputs have: the K words of the pattern after a filter-word hit, the
+    K - 1 words after word 0 without the filter (the table and window
+    kernels)."""
+    from multithreading_string_matching_tpu_torch.ops.table import filter_words
+
+    K = -(-wp.pat_lens.astype(np.int64) // 4)
+    if filtered:
+        hits = probe_hits(tiles, *filter_words(wp))
+        chain = 2 * int((hits * K).sum())
+    else:
+        hits = probe_hits(tiles, wp.pat_words[:, 0], wp.pat_masks[:, 0])
+        chain = 2 * int((hits * (K - 1)).sum())
+    ops = 2 * nbytes * len(K) + chain
+    print(f"{'filter-word' if filtered else 'word-0'} probe over {nbytes} B, {len(K)} patterns: "
+          f"{int(hits.sum())} hits, {ops:.6e} int32 ops")
+    return ops
 
 
 def overlapping(text: bytes, pat: bytes) -> int:
@@ -399,8 +483,11 @@ def device_busy(prof) -> dict:
 
 
 def shard_phase(dev, card: str, cw, ct, big, rules_file, cap2, batch2, big_counts, big_rows,
-                class_filter_ms: float, cap, pat_file, patterns, std_counts) -> list:
-    """Phase 7; returns the kernel record entries of the four shard kernels."""
+                class_filter_ms: float, cap, pat_file, patterns, std_counts,
+                head_bounds: dict) -> list:
+    """Phase 7; returns the kernel record entries of the four shard kernels
+    (their bounds, on the first ``ROWS_PER_PACKET_RUN`` rows, come in
+    ``head_bounds`` by ``(form, "totals" | "rows")``)."""
     import torch
 
     from multithreading_string_matching_tpu_torch import cli
@@ -606,7 +693,8 @@ def shard_phase(dev, card: str, cw, ct, big, rules_file, cap2, batch2, big_count
     return [{"name": f"shard_{form}_count_{kind}", "route": "cuda", "source": tsrc,
              "replaces": f"{tref}:{line}", "launches": launches[f"shard_{form}_count_{kind}"],
              "max_abs_err": max_err[f"shard_{form}_count_{kind}"], "ms": times[form][kind],
-             "plain_ms": times[form][f"plain_{kind}"]}
+             "plain_ms": times[form][f"plain_{kind}"], "library_ms": None,
+             **head_bounds[(form, kind)]}
             for form in ("filter", "table") for kind, line in (("totals", 474), ("rows", 501))]
 
 
@@ -817,6 +905,7 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
     plain_ms = cuda_ms(lambda: window_count_halo_plain(x, eff, ms, H, (words, masks, lens)),
                        PLAIN_RUNS)
     tile_bytes = int(eff.clamp(min=0).sum())
+    positions = int((eff - ms.clamp(min=0)).clamp(min=0).sum())  # those the kernel scans
     print(f"halo kernel, largest round tile {tuple(x.shape)} ({tile_bytes} valid bytes incl. "
           f"halos): {halo_ms:.4f} ms = {tile_bytes / halo_ms * 1e3:.6e} B/s (median of "
           f"{SCAN_RUNS}); plain {plain_ms:.4f} ms (median of {PLAIN_RUNS}) [{card}]")
@@ -840,7 +929,164 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
             "source": "multithreading_string_matching_tpu_torch/csrc/window_count.cu",
             "replaces": "multithreading_string_matching_tpu/ops/pallas_window.py:473",
             "launches": launches["window_count_halo"], "max_abs_err": max_err,
-            "ms": halo_ms, "plain_ms": plain_ms}
+            "ms": halo_ms, "plain_ms": plain_ms, "library_ms": None,
+            **window_bound(kern.wp, [(x, eff, ms.clamp(min=0))], positions, kern.num_unique)}
+
+
+def mxu_cases(rng, dev):
+    """(name, patterns, payload uint8[n, L] on ``dev``) cases for the
+    tensor-core kernel; rows hold planted patterns and are zero past random
+    lengths, as staged tiles are."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch.api import Matcher
+
+    def tile(pats, n, L, alphabet):
+        letters = np.frombuffer(alphabet, np.uint8)
+        x = letters[rng.integers(0, len(letters), size=(n, L))]
+        for _ in range(2 * n):
+            p = pats[int(rng.integers(0, len(pats)))]
+            if len(p) <= L:
+                r, o = int(rng.integers(0, n)), int(rng.integers(0, L - len(p) + 1))
+                x[r, o : o + len(p)] = np.frombuffer(p, np.uint8)
+        ln = rng.integers(0, L + 1, size=n)
+        x[np.arange(L)[None, :] >= ln[:, None]] = 0
+        return x, ln.astype(np.int32)
+
+    x_ = [b"x%03d" % i for i in range(129)]
+    long_ = [b"a", b"ab" * 49 + b"a", b"b" * 99, b"ba", b"b"]
+    rs = [b"rs%06d" % i for i in range(RULES)]
+    cases = [
+        ("width-1000-rows-37", [b"GET /", b"a", b"Host: "], *tile([b"GET /", b"a", b"Host: "],
+                                                                  37, 1000, ALNUM + b" /:")),
+        ("width-13-rows-9", [b"ab", b"b", b"abcdefgh"], *tile([b"ab", b"b", b"abcdefgh"], 9, 13, b"abc")),
+        ("u1-width-300", [b"abc"], *tile([b"abc"], 50, 300, b"abc")),
+        ("u127", x_[:127], *tile(x_[:127], 41, 260, b"x0123")),
+        ("u128", x_[:128], *tile(x_[:128], 41, 260, b"x0123")),
+        ("u129", x_, *tile(x_, 41, 260, b"x0123")),
+        ("u3072", rs, *tile(rs, 97, 517, b"rs0123")),
+        ("one-byte-and-m-max-99", long_, *tile(long_, 23, 777, b"ab")),
+        ("zero-rows", [b"ab"], np.zeros((0, 64), np.uint8), np.zeros(0, np.int32)),
+    ]
+    pk, pl = tile([b"abc", b"cab", b"b"], 300, 90, b"abc")
+    prep = Matcher([b"abc", b"cab", b"b"], device="cpu").prepare(pk, pl, packed=True,
+                                                                 pack_width=1000)
+    check(prep.packed, "the packed case did not pack")
+    cases.append(("packed-0x00-separators", [b"abc", b"cab", b"b"], prep.tiles[0][0].numpy(),
+                  prep.tiles[0][1].numpy()))
+    return [(name, pats, torch.from_numpy(np.ascontiguousarray(x)).to(dev))
+            for name, pats, x, _ in cases]
+
+
+def mxu_phase(dev, card: str, mx, matcher, prep, std_counts, head_p, head_l) -> dict:
+    """Phase 8; returns the kernel record entry of ``mxu_count``."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch.ops.cuda_table import CudaTableMatcher
+    from multithreading_string_matching_tpu_torch.tools import mxu_match
+
+    t_phase = time.perf_counter()
+    max_err = 0
+
+    def compare(got, want, name):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"mxu_count {name}: shape {tuple(got.shape)}")
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        max_err = max(max_err, err)
+        check(err == 0, f"mxu_count disagrees with the plain version on {name}")
+
+    # -- the kernel against its plain version -------------------------------
+    for name, pats, x in mxu_cases(np.random.default_rng(SEED + 8), dev):
+        P, tgt, m_max = mx.bit_tables(pats)
+        P, tgt = torch.from_numpy(P).to(dev), torch.from_numpy(tgt).to(dev)
+        want = mx.mxu_count_plain(P, tgt, m_max, x)
+        compare(mx.mxu_count(x, P, tgt), want, name)
+        compare(mx.mxu_count(x, P, tgt, reps=3), 3 * want, f"{name}, reps=3")
+        print(f"mxu kernel check {name}: U={len(pats)} m_max={m_max} n={x.shape[0]} "
+              f"L={x.shape[1]} totals={int(want.sum())}: equal (also reps=3)")
+
+    # -- the measurement path, launches counted --------------------------------
+    uniq = list(matcher.window.unique_patterns)
+    mxm = mx.MxuMatcher(uniq, dev)
+    table = CudaTableMatcher(matcher.window, dev, assume_zero_padded=True)
+    batch = mxu_match.corpus()
+    torch.cuda.synchronize()
+    reset_launches(mx)
+    rows, expected = [], 0
+    for name, pats in mxu_match.pattern_sets():
+        row = mxu_match.measure(batch, name, pats, dev)
+        expected += (1 + mxu_match.WARMUP + mxu_match.RUNS) * row["tiles"]
+        rows.append(row)
+    got = mxm.count_tiles(prep.tiles)
+    expected += sum(1 for p, _ in prep.tiles if p.numel())
+    launches = dict(mx.LAUNCHES)
+    print(f"mxu path: launches {launches}, expected {expected} mxu_count")
+    check(launches == {"mxu_count": expected, "mxu_count_repeated": 0},
+          f"mxu path launched {launches}, not {expected} x mxu_count")
+    for row in rows:
+        print(f"tools.mxu_match {json.dumps(row)}")
+    check(rows[1]["matches"] == rows[2]["matches"] > 0, "pt sets' matches differ")
+    check(np.array_equal(got.cpu().numpy()[matcher.window.dup_map], std_counts),
+          "mxu totals over phase 3's tiles differ from the window kernel's counts")
+    check(torch.equal(got, table.count_tiles(prep.tiles, expand_duplicates=False)),
+          "mxu totals over phase 3's tiles differ from the table kernel's")
+    first = matcher.prepare(head_p[:200], head_l[:200])
+    want_py = [sum(overlapping(head_p[r, : head_l[r]].tobytes(), p) for r in range(200))
+               for p in uniq]
+    check(mxm.count_tiles(first.tiles).tolist() == want_py,
+          "mxu totals on the first 200 rows differ from the pure-Python count")
+    print(f"mxu over phase 3's {len(prep.tiles)} tiles: {int(got.sum())} matches = window kernel "
+          "= table kernel; first 200 rows = pure Python")
+
+    # -- times ------------------------------------------------------------------
+    nbytes = prep.total_payload_bytes
+    ms = cuda_ms(lambda: mxm.count_tiles(prep.tiles), SCAN_RUNS)
+    P, tgt = mxm._P, mxm._tgt
+    plain_tiles = []
+
+    def plain_all():
+        plain_tiles[:] = [mx.mxu_count_plain(P, tgt, mxm.m_max, p) for p, _ in prep.tiles]
+
+    _, plain_ms = timed_once(plain_all)
+    for i, ((p, _), want) in enumerate(zip(prep.tiles, plain_tiles)):
+        compare(mx.mxu_count(p, P, tgt), want, f"phase 3 tile {i}")
+    print(f"mxu kernel, stand-in set over phase 3's resident tiles: {ms:.4f} ms = "
+          f"{nbytes / ms * 1e3:.6e} payload B/s (median of {SCAN_RUNS}); plain {plain_ms:.4f} ms "
+          f"(1 run), equal on every tile [{card}]")
+    x = prep.tiles[0][0][:1024].contiguous()
+    planes = mx._planes(x, P.shape[1] // 8).to(torch.int8).reshape(-1, P.shape[1])
+    lib_counts = (torch._int_mm(planes, P.t()) == tgt).sum(dim=0, dtype=torch.int32)
+    compare(mx.mxu_count(x, P, tgt), lib_counts, "the first 1,024 rows")
+    lib_ms = cuda_ms(lambda: torch._int_mm(planes, P.t()), SCAN_RUNS)
+    rows_ms = cuda_ms(lambda: mx.mxu_count(x, P, tgt), SCAN_RUNS)
+    print(f"torch._int_mm, the score product alone (no bit-plane build, no epilogue), first "
+          f"1,024 rows of tile 0 {tuple(x.shape)}: {lib_ms:.4f} ms; mxu_count on the same rows: "
+          f"{rows_ms:.4f} ms (medians of {SCAN_RUNS}) [{card}]")
+
+    # The stand-in set over phase 3's tiles: the tensor-core kernel against
+    # the table and window kernels, alternated (A B C, then C B A) so drift
+    # within the call falls on all three alike.
+    rivals = [("mxu", lambda: mxm.count_tiles(prep.tiles)),
+              ("table", lambda: table.count_tiles(prep.tiles, expand_duplicates=False)),
+              ("window", lambda: matcher.kernels.count_tiles(prep.tiles))]
+    alt = {name: [] for name, _ in rivals}
+    for r in range(ALT_ROUNDS):
+        for name, fn in rivals if r % 2 == 0 else rivals[::-1]:
+            alt[name].append(cuda_ms(fn, SCAN_RUNS))
+    for name, times in alt.items():
+        print(f"alternated, stand-in set over phase 3's tiles, {name} kernel: median "
+              f"{statistics.median(times):.4f} ms of {ALT_ROUNDS} rounds "
+              f"({', '.join(f'{t:.4f}' for t in times)}; each a median of {SCAN_RUNS}) [{card}]")
+    print(f"phase 8: {time.perf_counter() - t_phase:.3f} s")
+    ops = mxu_match.mxu_ops(nbytes, mxm.num_unique, mxm.m_max)
+    return {"name": "mxu_count", "route": "cuda",
+            "source": "multithreading_string_matching_tpu_torch/csrc/mxu_count.cu",
+            "replaces": "bench/mxu_match.py:125", "launches": launches["mxu_count"],
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_covers": "torch._int_mm score product only, first 1,024 rows of tile 0",
+            "ms_library_rows": rows_ms,
+            **bound(nbytes + 4 * mxm.num_unique, ops, mxu_match.INT8_TENSOR_OPS_PER_S)}
 
 
 def main() -> int:
@@ -862,6 +1108,7 @@ def run(dev) -> int:
     from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
     from multithreading_string_matching_tpu_torch.ops import cuda_table as ct
     from multithreading_string_matching_tpu_torch.ops import cuda_window as cw
+    from multithreading_string_matching_tpu_torch.ops import mxu as mx
     from multithreading_string_matching_tpu_torch.ops.table import filter_count, partition, table_count
     from multithreading_string_matching_tpu_torch.ops.window import (
         WindowProgram,
@@ -876,11 +1123,11 @@ def run(dev) -> int:
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(m.load_library, verbose_ptxas=True) for m in (cw, ct)]:
+    with ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(m.load_library, verbose_ptxas=True) for m in (cw, ct, mx)]:
             f.result()
-    print(f"build: {time.perf_counter() - t0:.3f} s wall for both libraries")
-    for m in (cw, ct):
+    print(f"build: {time.perf_counter() - t0:.3f} s wall for the three libraries")
+    for m in (cw, ct, mx):
         print(f"build: nvcc {m.BUILD_INFO['seconds']:.3f} s -> {m.BUILD_INFO['path']}")
         for line in str(m.BUILD_INFO["log"]).splitlines():
             if "registers" in line or "Compiling entry" in line:
@@ -1157,13 +1404,33 @@ def run(dev) -> int:
     check(load_patterns(rules_file) == rules, "the rule file does not load back")
     serial_wall(cli, cap2, rules_file, rules, big_counts, card)
 
+    # Bounds of the phase 3-5 records, from these runs' inputs.
+    U1, U2, n_head = matcher.kernels.num_unique, big.kernels.num_unique, head2_p.shape[0]
+    bounds = {
+        "window_count_totals": window_bound(matcher.window, prep.tiles, nbytes, U1),
+        "window_count_rows": window_bound(matcher.window, rows_prep.tiles, rbytes,
+                                          head_p.shape[0] * U1),
+        "window_count_totals_repeated": window_bound(matcher.window, prep.tiles, nbytes, U1, reps=3),
+    }
+    head_bounds, i32 = {}, int32_ops_per_s()
+    for form in ("filter", "table"):
+        full_ops = compare_ops(big.window, prep2.tiles, nbytes2, form == "filter")
+        head_ops = compare_ops(big.window, rows_prep2.tiles, rbytes2, form == "filter")
+        bounds[f"{form}_count_totals"] = bound(nbytes2 + 4 * U2, full_ops, i32)
+        head_bounds[(form, "totals")] = bound(rbytes2 + 4 * U2, head_ops, i32)
+        head_bounds[(form, "rows")] = bounds[f"{form}_count_rows"] = bound(
+            rbytes2 + 4 * n_head * U2, head_ops, i32)
+
     # -- 6. the flow path ---------------------------------------------------
     halo_record = flow_phase(dev, card, patterns, pat_file, cw, ct)
 
     # -- 7. the sharded path --------------------------------------------------
     shard_records = shard_phase(dev, card, cw, ct, big, rules_file, cap2, batch2, big_counts,
-                                big_rows, filt_ms, cap, pat_file, patterns, counts)
+                                big_rows, filt_ms, cap, pat_file, patterns, counts, head_bounds)
     rules_file.unlink()
+
+    # -- 8. the matrix-unit measurement path ----------------------------------
+    mxu_record = mxu_phase(dev, card, mx, matcher, prep, counts, head_p, head_l)
 
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
     ref = "multithreading_string_matching_tpu/ops/pallas_window.py"
@@ -1172,32 +1439,40 @@ def run(dev) -> int:
     record = {"kernels": [
         {"name": "window_count_totals", "route": "cuda", "source": src,
          "replaces": f"{ref}:402", "launches": launches["window_count_totals"],
-         "max_abs_err": max_err["window_count_totals"], "ms": tot_ms, "plain_ms": tot_plain_ms},
+         "max_abs_err": max_err["window_count_totals"], "ms": tot_ms, "plain_ms": tot_plain_ms,
+         "library_ms": None, **bounds["window_count_totals"]},
         {"name": "window_count_rows", "route": "cuda", "source": src,
          "replaces": f"{ref}:450", "launches": launches["window_count_rows"],
-         "max_abs_err": max_err["window_count_rows"], "ms": rows_ms, "plain_ms": rows_plain_ms},
+         "max_abs_err": max_err["window_count_rows"], "ms": rows_ms, "plain_ms": rows_plain_ms,
+         "library_ms": None, **bounds["window_count_rows"]},
         {"name": "window_count_totals_repeated", "route": "cuda", "source": src,
          "replaces": f"{ref}:417", "launches": launches["window_count_totals_repeated"],
          "max_abs_err": max_err["window_count_totals_repeated"], "ms": rep_ms,
-         "plain_ms": rep_plain_ms},
+         "plain_ms": rep_plain_ms,
+         "library_ms": None, **bounds["window_count_totals_repeated"]},
         {"name": "table_count_totals", "route": "cuda", "source": tsrc,
          "replaces": f"{tref}:644", "launches": tab_launches["table_count_totals"],
          "max_abs_err": max(max_err["table_count_totals"], max_err["table_count_totals_repeated"]),
-         "ms": tab_ms, "plain_ms": plain_ms["table"]},
+         "ms": tab_ms, "plain_ms": plain_ms["table"],
+         "library_ms": None, **bounds["table_count_totals"]},
         {"name": "table_count_rows", "route": "cuda", "source": tsrc,
          "replaces": f"{tref}:704", "launches": tab_launches["table_count_rows"],
          "max_abs_err": max_err["table_count_rows"], "ms": tab_rows_ms,
-         "plain_ms": plain_rows_ms["table"]},
+         "plain_ms": plain_rows_ms["table"],
+         "library_ms": None, **bounds["table_count_rows"]},
         {"name": "filter_count_totals", "route": "cuda", "source": tsrc,
          "replaces": f"{tref}:644", "launches": filt_launches["filter_count_totals"],
          "max_abs_err": max(max_err["filter_count_totals"], max_err["filter_count_totals_repeated"]),
-         "ms": filt_ms, "plain_ms": plain_ms["filter"]},
+         "ms": filt_ms, "plain_ms": plain_ms["filter"],
+         "library_ms": None, **bounds["filter_count_totals"]},
         {"name": "filter_count_rows", "route": "cuda", "source": tsrc,
          "replaces": f"{tref}:704", "launches": filt_launches["filter_count_rows"],
          "max_abs_err": max_err["filter_count_rows"], "ms": filt_rows_ms,
-         "plain_ms": plain_rows_ms["filter"]},
+         "plain_ms": plain_rows_ms["filter"],
+         "library_ms": None, **bounds["filter_count_rows"]},
         halo_record,
         *shard_records,
+        mxu_record,
     ]}
     print(card)
     print(json.dumps(record))

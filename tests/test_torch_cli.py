@@ -108,6 +108,11 @@ def test_package_never_imports_jax(capture):
         "from multithreading_string_matching_tpu_torch.io import flows\n"
         "from multithreading_string_matching_tpu_torch.parallel import flow_stream, mesh\n"
         "from multithreading_string_matching_tpu_torch.parallel import pattern_shard as ps\n"
+        "from multithreading_string_matching_tpu_torch.ops import mxu\n"
+        "from multithreading_string_matching_tpu_torch.tools import mxu_match\n"
+        "assert mxu.MxuMatcher([b'ab', b'b'], device='cpu')"
+        ".count_tiles([([[97, 98, 98]], [3])]).tolist() == [1, 2]\n"
+        "assert len(mxu_match.pattern_sets()) == 3\n"
         f"assert cli.main(['serial', {str(capture)!r}, {str(STANDIN)!r}, 'udp']) == 0\n"
         "pm = m.Matcher([b'ab', b'ba', b'abc'], device='cpu')\n"
         "c = ps.count_matches_pattern_sharded(pm, [[97, 98, 97, 99]], [4],\n"

@@ -438,3 +438,68 @@ def test_pattern_sharded_virtual_meshes_on_card(cuda_device):
     torch.cuda.synchronize()
     assert cw.LAUNCHES["window_count_halo"] == before + 2
     assert torch.equal(got.cpu(), window_count_halo_plain(x, eff, ms, H, wp.tables("cpu")))
+
+
+# -- the matrix-unit kernel (ops/mxu.py) ---------------------------------------
+
+# name: (patterns, seed, rows, width, alphabet)
+MXU_CASES = {
+    "ragged-width-1000": (load_patterns(STANDIN), 61, 37, 1000,
+                          b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ/:. "),
+    "width-13": ([b"ab", b"b", b"abcdefgh"], 62, 9, 13, b"abc"),
+    "m-max-99": ([b"a", b"ab" * 49 + b"a", b"b" * 99, b"ba"], 63, 20, 517, b"ab"),
+    "u-1": ([b"abc"], 64, 50, 300, b"abc"),
+    "u-127": ([b"x%03d" % i for i in range(127)], 65, 40, 260, b"x0123"),
+    "u-128": ([b"x%03d" % i for i in range(128)], 66, 40, 260, b"x0123"),
+    "u-129": ([b"x%03d" % i for i in range(129)], 67, 40, 260, b"x0123"),
+    "u-3072": (RS, 68, 64, 256, b"rs0123"),
+    "zero-rows": ([b"ab"], 69, 0, 64, b"ab"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MXU_CASES))
+def test_mxu_kernel_equals_plain(cuda_device, case):
+    """``mxu_count`` (int8 mma.sync) equals ``mxu_count_plain`` on the card,
+    with reps 1 and 3, on rows zero past their lengths."""
+    from multithreading_string_matching_tpu_torch.ops import mxu
+
+    pats, seed, n, L, alphabet = MXU_CASES[case]
+    p, ln = _tile(seed, n, L, alphabet, cuda_device, plant=pats)
+    p = torch.where(torch.arange(L, device=cuda_device)[None, :] < ln[:, None], p, 0)
+    P, tgt, m_max = mxu.bit_tables(pats)
+    P, tgt = torch.from_numpy(P).to(cuda_device), torch.from_numpy(tgt).to(cuda_device)
+    want = mxu.mxu_count_plain(P, tgt, m_max, p)
+    before = dict(mxu.LAUNCHES)
+    for reps in (1, 3):
+        got = mxu.mxu_count(p, P, tgt, reps=reps)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, reps * want), reps
+    launched = int(n > 0)
+    assert mxu.LAUNCHES == {"mxu_count": before["mxu_count"] + launched,
+                            "mxu_count_repeated": before["mxu_count_repeated"] + launched}
+    m = mxu.MxuMatcher(pats, cuda_device)
+    assert torch.equal(m.count_tiles([(p, ln)]), want[: len(pats)])
+    assert n == 0 or want.sum() > 0
+
+
+def test_mxu_wrapper_refuses_bad_inputs(cuda_device):
+    from multithreading_string_matching_tpu_torch.ops import mxu
+
+    P, tgt, _ = mxu.bit_tables([b"ab", b"b"])
+    P, tgt = torch.from_numpy(P).to(cuda_device), torch.from_numpy(tgt).to(cuda_device)
+    p, _ = _tile(1, 8, 64, b"ab", cuda_device)
+    with pytest.raises(ValueError):
+        mxu.mxu_count(p.long(), P, tgt)
+    with pytest.raises(ValueError):
+        mxu.mxu_count(p, P[:100].contiguous(), tgt[:100])
+    with pytest.raises(ValueError):
+        mxu.mxu_count(p, P, tgt.cpu())
+    with pytest.raises(ValueError, match="reps"):
+        mxu.mxu_count(p, P, tgt, reps=0)
+    out = torch.zeros(128, dtype=torch.int32, device=cuda_device)
+    # The C entry point refuses a depth that is not a multiple of 32; the
+    # wrapper turns its return code into an error.
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mxu.LIBRARY.call("msm_mxu_count", p.data_ptr(), P.data_ptr(), tgt.data_ptr(),
+                         out.data_ptr(), 8, 64, 128, 8, 1, 0,
+                         torch.cuda.current_stream().cuda_stream)
