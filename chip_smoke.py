@@ -14,9 +14,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (``table_count_*``, ``filter_count_*``, totals also with ``reps=3``) on
    ragged widths, NUL patterns over rows that are not zero-filled, zero-row
    and zero-width tiles, patterns longer than the row, multi-segment rows,
-   3072 ``rs%06d`` patterns (chunked shared-memory tables), a mixed set of
-   word-count classes 1..8, a class of one pattern, a shared-prefix set and
-   filter words present without their patterns.
+   3072 ``rs%06d`` patterns, a mixed set of word-count classes 1..8, a class
+   of one pattern, a shared-prefix set and filter words present without
+   their patterns; and the hashed probe's hard cases (``csrc/probe.cuh``):
+   3,072 patterns sharing one probe key, 64 keys in one hash bucket, a
+   class of 1-, 2-, 3- and 4-byte patterns (four probe masks), NUL bytes
+   inside keys, a filter word that occurs twice in its pattern, U = 1 and
+   U = 3,072 at K = 8, and 9,000 patterns (three hash chunks).  A table of
+   nine probe masks is refused by the wrappers (``ValueError``) and counted
+   exactly by the C entry point.
 3. The main path at a real size: a seeded 100,000-packet capture of
    ~1 KB payloads (~100 MB) with the 97-token stand-in pattern set, counted
    by ``Matcher(device="cuda").count_pcap``, per packet on its first 8,192
@@ -25,16 +31,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    version's on the card and, on the first rows, a pure-Python count.
 4. Times, with the card's name and power limit beside each: the scan rate
    of the resident prepared tiles (median of 20 runs, CUDA events), the
-   plain version's rate at the same shapes, and the wall time of the full
-   ``serial`` path.
+   device time of one such pass queued alone ahead of the card
+   (``utils.timing.queued_ms``: without the host's time between launches,
+   and only where the host enqueued the whole pass before the card
+   reached it), the plain version's rate at the same shapes, and the wall
+   time of the full ``serial`` path.
 5. The large-rule-set path: 3,072 seeded patterns of 4-32 bytes over a
    second seeded 100,000-packet capture.  ``Matcher`` must choose the
    filter kernels (``explain()``), and ``count_pcap``, per-packet counts and
    repeats must launch them; with ``MSM_PALLAS_FILTER=0`` the table kernels.
    Totals equal the window kernel's, the plain version's and, on the first
    rows, a pure-Python count.  Times: table+filter, table and window kernels
-   on the resident tiles, the plain versions, the bench's 3,072 ``rs%06d``
-   set over the phase-3 capture, and ``serial`` with the large file.
+   on the resident tiles, the plain versions, the filter kernels of the
+   87-pattern stand-in set and of the 3,072 rules over the same tiles, the
+   bench's 3,072 ``rs%06d`` set over the phase-3 capture, and ``serial``
+   with the large file.
 6. The flow path: a seeded capture of 768 TCP flows x 131,072 stream bytes
    (~100.7 MB) in 1,400-byte segments, interleaved, with stand-in patterns
    planted at random offsets and across segment boundaries, streamed
@@ -56,8 +67,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    one launch per shard.  Pattern-sharded rows and summary on the first
    8,192 rows equal phase 5's per-packet counts.  Each shard kernel equals
    its plain version there, on the whole set's block and on five padded
-   blocks.  ``match --sharded --shard-axis packets`` on the phase-3 files
-   gives phase 3's counts through ``window_count_totals``; a sharded flow
+   blocks of each form.  ``match --sharded --shard-axis packets`` on the
+   phase-3 files gives phase 3's counts through ``window_count_totals``; a
+   sharded flow
    stream on a 2-shard mesh equals the unsharded one through
    ``window_count_halo``.  Times: the shard kernels on the resident
    [N, L_max] tile and on 8,192 rows against the class route and the plain
@@ -83,7 +95,14 @@ The line before the last is one JSON object with a record per kernel, each
 with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
 operations over the peak rate for their type, ``bound_by`` which) and, where
 one PyTorch call computes a yardstick, ``library_ms``; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  The operations of the window, table and
+filter kernels are those of the hashed probe on this run's inputs
+(:func:`probe_ops`: a key-map test per position and pass, hash lookups
+only where the map lets a position through, candidates' verify chains);
+the per-pattern probe count of earlier versions is printed beside each of
+their bounds.  Their records also carry ``device_ms``, the device time of
+the call that ``ms`` times queued alone ahead of the card (``null`` where
+the host could not stay ahead: the upper bound is printed instead).
 """
 
 from __future__ import annotations
@@ -104,7 +123,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from multithreading_string_matching_tpu_torch.utils.timing import card_line, cuda_ms
+from multithreading_string_matching_tpu_torch.utils.timing import (
+    card_line,
+    cuda_ms,
+    queued_ms,
+)
 
 SEED = 1
 MAIN_PACKETS = 100_000
@@ -120,6 +143,25 @@ ALNUM = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+DEVICE_RUNS = 3
+
+
+def device_ms(fn):
+    """Device milliseconds of one call of ``fn`` queued alone ahead of the
+    card (:func:`queued_ms`, median of ``DEVICE_RUNS``), or ``None`` when
+    the host could not enqueue the whole call before the card reached it:
+    the reading, printed as an upper bound, would hold the host's pace."""
+    ms, clean = queued_ms(fn, DEVICE_RUNS)
+    if clean:
+        return ms
+    print(f"queued device time: the host fell behind the card; {ms:.4f} ms is an upper bound")
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured (host fell behind)" if ms is None else f"{ms:.4f} ms"
 
 
 # The least time the card could take for a kernel's work (the ``bound_ms`` of
@@ -152,21 +194,21 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
     return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
 
-def window_bound(wp, tiles, nbytes: int, out_ints: int, reps: int = 1) -> dict:
-    """Window kernels over ``tiles`` (``nbytes`` real positions), ``reps``
-    times: a pattern's chain stops at its first mismatched word, so the
-    int32 operations are those of the table kernels' word-0 probe and
-    chain (:func:`compare_ops`)."""
-    ops = reps * compare_ops(wp, tiles, nbytes, filtered=False)
-    return bound(nbytes + 4 * out_ints, ops, int32_ops_per_s())
+def window_bound(wp, w, nbytes: int, out_ints: int, reps: int = 1, label: str = "") -> dict:
+    """Window kernels over the ``nbytes`` real positions whose words are
+    ``w`` (:func:`position_words`), ``reps`` times: one pass, its probe
+    word 0 (:func:`probe_ops`)."""
+    col = (wp.pat_words[:, 0], wp.pat_masks[:, 0])
+    return probe_bound(label, probe_work(wp, w, filtered=False), nbytes, [lookups(w, *col)],
+                       nbytes + 4 * out_ints, reps)
 
 
-def probe_hits(tiles, words: np.ndarray, masks: np.ndarray) -> np.ndarray:
-    """Per pattern, the real payload positions of ``tiles`` whose 4-byte
-    little-endian word (bytes past the row's width read as 0) equals its
-    probe word under its mask.  A tile is ``(payload, lengths)``, its
-    positions ``[0, lengths[r])``, or ``(payload, lengths, starts)``, its
-    positions ``[starts[r], lengths[r])``."""
+def position_words(tiles):
+    """Sorted int64 tensor of the 4-byte little-endian word (bytes past the
+    row's width read as 0) at every real payload position of ``tiles``.  A
+    tile is ``(payload, lengths)``, its positions ``[0, lengths[r])``, or
+    ``(payload, lengths, starts)``, its positions ``[starts[r],
+    lengths[r])``."""
     import torch
     import torch.nn.functional as F
 
@@ -180,7 +222,14 @@ def probe_hits(tiles, words: np.ndarray, masks: np.ndarray) -> np.ndarray:
         if s:
             keep &= pos >= s[0][:, None]
         vals.append(w[keep])
-    w = torch.sort(torch.cat(vals)).values
+    return torch.sort(torch.cat(vals)).values
+
+
+def probe_hits(w, words: np.ndarray, masks: np.ndarray) -> np.ndarray:
+    """Per pattern, the positions (sorted words ``w``) whose word equals its
+    probe word under its mask."""
+    import torch
+
     hits = np.zeros(len(words), np.int64)
     full = masks.astype(np.uint32) == 0xFFFFFFFF
     fw = torch.from_numpy(words[full].astype(np.int64)).to(w.device)
@@ -190,26 +239,76 @@ def probe_hits(tiles, words: np.ndarray, masks: np.ndarray) -> np.ndarray:
     return hits
 
 
-def compare_ops(wp, tiles, nbytes: int, filtered: bool) -> int:
-    """int32 operations of the compare kernels over ``tiles`` (``nbytes``
-    real positions): one probe (a masked 32-bit compare, 2 ops) per (real
-    position, pattern), then the verify chain on the probe hits these
-    inputs have: the K words of the pattern after a filter-word hit, the
-    K - 1 words after word 0 without the filter (the table and window
-    kernels)."""
+def lookups(w, words, masks) -> int:
+    """Hash lookups of one pass of a probe kernel over the positions whose
+    words are ``w``, with ``words``/``masks`` its probe column
+    (csrc/probe.cuh): one per distinct probe mask at each position whose
+    low 16 bits are set in the launch's key map; at every position when a
+    mask's low 16 bits are neither 0xFF nor 0xFFFF (the map is off).  Keys
+    that can never fire (bits outside their mask, mask 0) build nothing."""
+    import torch
+
+    words = np.asarray(words).astype(np.uint32)
+    masks = np.asarray(masks).astype(np.uint32)
+    live = (masks != 0) & ((words & masks) == words)
+    n_masks = int(np.unique(masks[live]).size)
+    lo, key = masks[live] & 0xFFFF, words[live].astype(np.int64)
+    if not n_masks:
+        return 0
+    if np.any((lo != 0xFFFF) & (lo != 0xFF)):
+        return n_masks * int(w.numel())
+    bits = np.zeros(1 << 16, bool)
+    bits[key[lo == 0xFFFF] & 0xFFFF] = True
+    bits[((key[lo == 0xFF] & 0xFF)[:, None] + np.arange(0, 1 << 16, 256)[None, :]).ravel()] = True
+    return n_masks * int(torch.from_numpy(bits).to(w.device)[w & 0xFFFF].sum())
+
+
+def probe_work(wp, w, filtered: bool):
+    """``(hits, chain)`` per pattern over the positions whose words are
+    ``w``: the candidates (positions where its probe word matches: the
+    filter word with the filter, else word 0) and the words a candidate
+    verifies (K after a filter-word hit, K - 1 after word 0)."""
     from multithreading_string_matching_tpu_torch.ops.table import filter_words
 
     K = -(-wp.pat_lens.astype(np.int64) // 4)
     if filtered:
-        hits = probe_hits(tiles, *filter_words(wp))
-        chain = 2 * int((hits * K).sum())
-    else:
-        hits = probe_hits(tiles, wp.pat_words[:, 0], wp.pat_masks[:, 0])
-        chain = 2 * int((hits * (K - 1)).sum())
-    ops = 2 * nbytes * len(K) + chain
-    print(f"{'filter-word' if filtered else 'word-0'} probe over {nbytes} B, {len(K)} patterns: "
-          f"{int(hits.sum())} hits, {ops:.6e} int32 ops")
-    return ops
+        return probe_hits(w, *filter_words(wp)), K
+    return probe_hits(w, wp.pat_words[:, 0], wp.pat_masks[:, 0]), K - 1
+
+
+def probe_ops(work, nbytes: int, passes) -> tuple:
+    """``(ops, per_pattern_ops)``: int32 operations of the hashed-probe
+    kernels (csrc/probe.cuh) over ``nbytes`` real positions, and those of
+    the per-pattern probe they replaced.
+
+    Hashed, per pass over the positions (``passes`` holds each pass's
+    :func:`lookups`: one pass for the window kernels and a shard block, one
+    per word-count class for the class route): per position one map test
+    (window build, map index, map load, bit test: 4 ops); per lookup an
+    AND, a hash, a head load and a compare (4 ops); then per candidate its
+    probe compare (2 ops) and its verify chain (2 ops a word).  Per
+    pattern: one masked probe (2 ops) per (position, pattern), then the
+    same verify chains."""
+    hits, chain = work
+    verify = 2 * int((hits * chain).sum())
+    ops = 4 * nbytes * len(passes) + 4 * sum(passes) + 2 * int(hits.sum()) + verify
+    return ops, 2 * nbytes * len(hits) + verify
+
+
+def probe_bound(label: str, work, nbytes: int, passes, out_bytes: int, reps: int = 1) -> dict:
+    """The record's bound from :func:`probe_ops`, ``reps`` times over
+    (bytes: the payload read once and the counts written once); prints the
+    per-pattern probe bound beside it."""
+    ops, old = (reps * x for x in probe_ops(work, nbytes, passes))
+    i32 = int32_ops_per_s()
+    new, prev = bound(out_bytes, ops, i32), bound(out_bytes, old, i32)
+    print(f"bound {label}: {new['bound_ms']:.4f} ms ({new['bound_by']}; {nbytes} B x {reps} "
+          f"rep(s), {len(passes)} map test(s) a position, lookups {list(passes)} "
+          f"({sum(passes) / max(nbytes, 1):.6f} a position), {int(work[0].sum())} candidates, "
+          f"{ops:.6e} int32 ops; bytes alone {bound(out_bytes, 0, i32)['bound_ms']:.4f} ms); "
+          f"per-pattern probe bound {prev['bound_ms']:.4f} ms ({len(work[0])} patterns, "
+          f"{old:.6e} ops)")
+    return new
 
 
 def overlapping(text: bytes, pat: bytes) -> int:
@@ -248,19 +347,64 @@ def capture_for(patterns, seed: int, tag: str) -> pathlib.Path:
     return cap
 
 
+def planted_tile(rng, pats, n, L, alphabet):
+    """Random rows of ``alphabet`` (not zero past their random lengths);
+    row r holds ``pats[r % len(pats)]`` where it fits."""
+    letters = np.frombuffer(alphabet, np.uint8)
+    p = letters[rng.integers(0, len(letters), size=(n, L))]
+    for r in range(n):
+        pat = pats[r % len(pats)]
+        if len(pat) <= L:
+            o = int(rng.integers(0, L - len(pat) + 1))
+            p[r, o : o + len(pat)] = np.frombuffer(pat, np.uint8)
+    return p, rng.integers(0, L + 1, size=n).astype(np.int32)
+
+
+def one_bucket(n: int, alphabet: bytes, seed: int):
+    """``n`` 4-byte patterns whose probe keys share one hash bucket of a
+    launch over ``n`` patterns with one probe mask (csrc/probe.cuh)."""
+    from multithreading_string_matching_tpu_torch.ops.cuda_window import probe_bucket
+
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(alphabet, np.uint8)
+    groups = {}
+    while True:
+        pat = bytes(letters[rng.integers(0, len(letters), size=4)])
+        group = groups.setdefault(probe_bucket(int.from_bytes(pat, "little"), 0, n), set())
+        group.add(pat)
+        if len(group) == n:
+            return sorted(group)
+
+
+def probe_cases(rng):
+    """(name, patterns, payload, lengths) cases aimed at the hashed probe
+    (csrc/probe.cuh), on planted rows."""
+    hexd = b"0123456789abcdef"
+    alnum = b"abcdefghijklmnopqrstuvwxyz0123456789"
+    cases = [
+        ("one-probe-key-3072", [b"HTTP/1.%04d" % i for i in range(RULES)], 512, 600,
+         b"HTP/1.0123456789"),
+        ("one-bucket-64", one_bucket(64, hexd, SEED + 20), 512, 600, hexd),
+        ("four-masks-1-2-3-4-bytes", [b"a", b"b", b"ab", b"ca", b"abc", b"bca", b"abca", b"cabc",
+                                      b"abcab"], 256, 300, b"abc"),
+        ("nul-inside-keys", [b"\x00a\x00b", b"a\x00\x00", b"\x00", b"\x00\x00\x00\x00",
+                             b"a\x00b\x00c\x00d\x00", b"\x00\x00ab"], 256, 120, b"ab\x00"),
+        ("filter-word-twice", [b"wxyzabcdwxyz", b"abcdefgh", b"ijklabcd", b"abcdmnop",
+                               b"qrstabcd"], 256, 300, b"wxyzabcd"),
+        ("u1-k8", [alnum[:32]], 256, 400, alnum[:32]),
+        ("u3072-k8", rule_set(SEED + 21, RULES, lo=29, hi=32, alphabet=alnum), 512, 600, alnum),
+        ("u9000-three-chunks",[b"c%05d" % i for i in range(9000)], 256, 300, b"c0123456789"),
+    ]
+    return [(name, pats, *planted_tile(rng, pats, n, L, alphabet))
+            for name, pats, n, L, alphabet in cases]
+
+
 def table_cases(rng):
     """(name, patterns, payload, lengths) cases aimed at the table kernels;
     every row holds a planted pattern where it fits."""
 
     def tile(pats, n, L, alphabet):
-        letters = np.frombuffer(alphabet, np.uint8)
-        p = letters[rng.integers(0, len(letters), size=(n, L))]
-        for r in range(n):
-            pat = pats[r % len(pats)]
-            if len(pat) <= L:
-                o = int(rng.integers(0, L - len(pat) + 1))
-                p[r, o : o + len(pat)] = np.frombuffer(pat, np.uint8)
-        return p, rng.integers(0, L + 1, size=n).astype(np.int32)
+        return planted_tile(rng, pats, n, L, alphabet)
 
     mixed = rule_set(3, n=400, lo=1, hi=32, alphabet=b"abc")
     nul = [b"\x00" * k for k in range(1, 10)] + [b"a\x00b\x00c\x00d", b"ab\x00\x00ab"]
@@ -594,32 +738,42 @@ def shard_phase(dev, card: str, cw, ct, big, rules_file, cap2, batch2, big_count
             "full": cuda_ms(lambda: kern.counts(*tabs, fp, fl), SCAN_RUNS),
             "totals": cuda_ms(lambda: kern.counts(*tabs, hp, hl), SCAN_RUNS),
             "rows": cuda_ms(lambda: kern.rows(*tabs, hp, hl), SCAN_RUNS),
+            "dev_full": device_ms(lambda: kern.counts(*tabs, fp, fl)),
+            "dev_totals": device_ms(lambda: kern.counts(*tabs, hp, hl)),
+            "dev_rows": device_ms(lambda: kern.rows(*tabs, hp, hl)),
             "plain_totals": plain_t, "plain_rows": plain_r,
         }
         print(f"shard {form} kernels (K={plan.K}, S={plan.S}) = plain on {ROWS_PER_PACKET_RUN} "
               f"rows: totals {int(want_t.sum())}")
-    # Five blocks with padded slots (C=615, S=640): kernels = plain per row.
-    plan5 = build_pattern_shards(big.window, 5, filtered=True)
-    kern5 = ct.ShardTableKernel(plan5.K, plan5.S, plan5.use_fit, True, dev)
-    for d in range(5):
-        tabs = block(plan5, d)
-        want_r = filter_count(*tabs, hp, hl, plan5.K, per_row=True)
-        compare("shard_filter_count_rows", kern5.rows(*tabs, hp, hl), want_r, f"block {d} of 5")
-        compare("shard_filter_count_totals", kern5.counts(*tabs, hp, hl),
-                want_r.sum(dim=0, dtype=torch.int32), f"block {d} of 5")
-        check(not want_r[:, plan5.valid(d):].any(), f"padded slots of block {d} counted")
-    print(f"shard kernels = plain on 5 padded blocks (C={plan5.C}, S={plan5.S})")
+    # Five blocks with padded slots (C=615, S=640), each form: kernels = plain
+    # per row.  The filter form's padded slots hold the never-fires sentinel,
+    # the table form's a probe that fires everywhere and never fits.
+    for form, plain in (("filter", filter_count), ("table", table_count)):
+        plan5 = build_pattern_shards(big.window, 5, filtered=form == "filter")
+        kern5 = ct.ShardTableKernel(plan5.K, plan5.S, plan5.use_fit, form == "filter", dev)
+        for d in range(5):
+            tabs = block(plan5, d)
+            want_r = plain(*tabs, hp, hl, plan5.K, per_row=True)
+            compare(f"shard_{form}_count_rows", kern5.rows(*tabs, hp, hl), want_r,
+                    f"block {d} of 5")
+            compare(f"shard_{form}_count_totals", kern5.counts(*tabs, hp, hl),
+                    want_r.sum(dim=0, dtype=torch.int32), f"block {d} of 5")
+            check(not want_r[:, plan5.valid(d):].any(), f"padded slots of block {d} counted")
+        print(f"shard {form} kernels = plain on 5 padded blocks (C={plan5.C}, S={plan5.S})")
     class_same_ms = cuda_ms(lambda: big.kernels.count_tiles([(fp, fl)]), SCAN_RUNS)
     nb = int(batch2.total_payload_bytes)
     for form, t in times.items():
         print(f"shard {form} totals kernel, resident tile {tuple(fp.shape)}: {t['full']:.4f} ms = "
-              f"{nb / t['full'] * 1e3:.6e} payload B/s (median of {SCAN_RUNS}) [{card}]")
+              f"{nb / t['full'] * 1e3:.6e} payload B/s (median of {SCAN_RUNS}); device "
+              f"time {fmt_ms(t['dev_full'])} [{card}]")
     print(f"class-route filter kernels, same tile: {class_same_ms:.4f} ms; on phase 5's "
           f"bucketed tiles: {class_filter_ms:.4f} ms [{card}]")
     for form, t in times.items():
         print(f"shard {form} on {ROWS_PER_PACKET_RUN} rows: totals {t['totals']:.4f} ms, rows "
-              f"{t['rows']:.4f} ms (median of {SCAN_RUNS}); plain totals {t['plain_totals']:.4f} "
-              f"ms, rows {t['plain_rows']:.4f} ms (1 run) [{card}]")
+              f"{t['rows']:.4f} ms (median of {SCAN_RUNS}); device time "
+              f"{fmt_ms(t['dev_totals'])}, {fmt_ms(t['dev_rows'])}; plain totals "
+              f"{t['plain_totals']:.4f} ms, rows "
+              f"{t['plain_rows']:.4f} ms (1 run) [{card}]")
 
     # -- the packet axis through the CLI ----------------------------------------
     def match(pcap, pats, *flags):
@@ -693,6 +847,7 @@ def shard_phase(dev, card: str, cw, ct, big, rules_file, cap2, batch2, big_count
     return [{"name": f"shard_{form}_count_{kind}", "route": "cuda", "source": tsrc,
              "replaces": f"{tref}:{line}", "launches": launches[f"shard_{form}_count_{kind}"],
              "max_abs_err": max_err[f"shard_{form}_count_{kind}"], "ms": times[form][kind],
+             "device_ms": times[form][f"dev_{kind}"],
              "plain_ms": times[form][f"plain_{kind}"], "library_ms": None,
              **head_bounds[(form, kind)]}
             for form in ("filter", "table") for kind, line in (("totals", 474), ("rows", 501))]
@@ -728,6 +883,9 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
         ("rows-wider-than-a-segment", [b"ab", b"abcdefgh", b"b"], 63, 16, 5000, b"abcdefgh"),
         ("standin-sub-lanes", patterns, 64, 1024, 2048, ALNUM + b" /:."),
         ("rs3072", rs, 65, 128, 256, b"rs0123"),
+        ("four-probe-masks", [b"a", b"ab", b"abc", b"abcd", b"bcab"], 66, 256, 300, b"abc"),
+        ("one-probe-key-3072", [b"HTTP/1.%04d" % i for i in range(RULES)], 67, 64, 400,
+         b"HTP/1.0123456789"),
     ):
         wp, H, x, eff, ms = halo_lanes(pats, seed, n, C, alphabet)
         tabs = wp.tables(dev)
@@ -902,16 +1060,19 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
     want_tile = window_count_halo_plain(x, eff, ms, H, (words, masks, lens))
     compare(cw.window_count_halo(x, eff, ms, words, masks, lens, H), want_tile, "largest round tile")
     halo_ms = cuda_ms(lambda: cw.window_count_halo(x, eff, ms, words, masks, lens, H), SCAN_RUNS)
+    halo_dev = device_ms(lambda: cw.window_count_halo(x, eff, ms, words, masks, lens, H))
     plain_ms = cuda_ms(lambda: window_count_halo_plain(x, eff, ms, H, (words, masks, lens)),
                        PLAIN_RUNS)
     tile_bytes = int(eff.clamp(min=0).sum())
     positions = int((eff - ms.clamp(min=0)).clamp(min=0).sum())  # those the kernel scans
     print(f"halo kernel, largest round tile {tuple(x.shape)} ({tile_bytes} valid bytes incl. "
           f"halos): {halo_ms:.4f} ms = {tile_bytes / halo_ms * 1e3:.6e} B/s (median of "
-          f"{SCAN_RUNS}); plain {plain_ms:.4f} ms (median of {PLAIN_RUNS}) [{card}]")
+          f"{SCAN_RUNS}), device time {fmt_ms(halo_dev)}; plain {plain_ms:.4f} ms (median of "
+          f"{PLAIN_RUNS}) [{card}]")
 
     for flags in (["--flows", "--stream"], ["--flows"]):
         out = io.StringIO()
+        halo_before = cw.LAUNCHES["window_count_halo"]
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = cli.main(["match", "--pcap", str(cap), "--patterns", str(pat_file), "--mode",
@@ -919,18 +1080,21 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
         cli_s = time.perf_counter() - t0
         check(rc == 0, f"match {' '.join(flags)} exited {rc}")
         blob = json.loads(out.getvalue().splitlines()[-1])
+        halo_launches = cw.LAUNCHES["window_count_halo"] - halo_before
         check(blob["counts"] == counts.tolist() and blob["flows"] == FLOWS,
               f"match {' '.join(flags)} counts differ")
+        check((halo_launches > 0) == ("--stream" in flags),
+              f"match {' '.join(flags)} launched window_count_halo {halo_launches} times")
         print(f"match {' '.join(flags)} --json: {cli_s:.4f} s wall, phases {blob['phases']}, "
-              f"execution {blob['execution'].get('flow_rounds', blob['execution'].get('pallas_kernel'))} "
-              f"[{card}]")
+              f"window_count_halo launches {halo_launches} [{card}]")
 
     return {"name": "window_count_halo", "route": "cuda",
             "source": "multithreading_string_matching_tpu_torch/csrc/window_count.cu",
             "replaces": "multithreading_string_matching_tpu/ops/pallas_window.py:473",
             "launches": launches["window_count_halo"], "max_abs_err": max_err,
-            "ms": halo_ms, "plain_ms": plain_ms, "library_ms": None,
-            **window_bound(kern.wp, [(x, eff, ms.clamp(min=0))], positions, kern.num_unique)}
+            "ms": halo_ms, "device_ms": halo_dev, "plain_ms": plain_ms, "library_ms": None,
+            **window_bound(kern.wp, position_words([(x, eff, ms.clamp(min=0))]), positions,
+                           kern.num_unique, label="window_count_halo")}
 
 
 def mxu_cases(rng, dev):
@@ -1144,7 +1308,7 @@ def run(dev) -> int:
         max_err[kname] = max(max_err[kname], err)
         check(err == 0, f"{kname} disagrees with the plain version on {name}")
 
-    cases = kernel_cases(rng)
+    cases = kernel_cases(rng) + probe_cases(np.random.default_rng(SEED + 2))
     for name, pats, payload, lengths in cases:
         wp = WindowProgram.build(pats)
         words, masks, lens = wp.tables(dev)
@@ -1177,6 +1341,31 @@ def run(dev) -> int:
         print(f"table kernel check {name}: U={len(set(pats))} classes K="
               f"{[c.K for c in classes]} n={payload.shape[0]} L={payload.shape[1]} "
               f"totals={found}: equal")
+    # Nine probe masks: the wrappers refuse them; the C entry point puts the
+    # ninth on the wildcard chain and stays exact.
+    nine = [0xFF, 0xFFFF, 0xFFFFFF, 0xFFFFFFFF, 0xFF00, 0xFF0000, 0xFF000000, 0x00FF00FF,
+            0xFFFF0000]
+    keys = [int.from_bytes(q, "little") & m for q, m in zip(
+        (b"abcd", b"bcda", b"cdab", b"dabc", b"aabb", b"abab", b"dddd", b"acac", b"cdcd"), nine)]
+    w9, m9 = (torch.from_numpy(np.array(v, np.uint32).view(np.int32)[:, None].copy()).to(dev)
+              for v in (keys, nine))
+    l9 = torch.full((9,), 4, dtype=torch.int32, device=dev)
+    p9, n9 = (torch.from_numpy(a).to(dev) for a in planted_tile(rng, [b"abcdabab"], 64, 200, b"abcd"))
+    for fn in (lambda: cw.window_count_totals(p9, n9, w9, m9, l9),
+               lambda: ct.table_count_totals(p9, n9, w9, m9, l9, 1)):
+        try:
+            fn()
+        except ValueError as e:
+            check("9 distinct" in str(e), f"nine probe masks refused with {e}")
+        else:
+            check(False, "a table of nine probe masks was not refused")
+    out9 = torch.zeros(9, dtype=torch.int32, device=dev)
+    cw.LIBRARY.call("msm_window_count_totals", p9.data_ptr(), n9.data_ptr(), w9.data_ptr(),
+                    m9.data_ptr(), l9.data_ptr(), out9.data_ptr(), 64, 200, 9, 1, 1, 0,
+                    torch.cuda.current_stream().cuda_stream)
+    compare("window_count_totals", out9, window_count(w9, m9, l9, p9, n9), "nine probe masks")
+    print(f"nine probe masks: refused by the wrappers; the C entry point = plain "
+          f"({int(out9.sum())} matches)")
 
     # -- 3. the main path -------------------------------------------------
     pat_file = pathlib.Path(__file__).resolve().parent / (
@@ -1242,6 +1431,11 @@ def run(dev) -> int:
         lambda: 3 * count_matches_window_tiles(matcher.window, prep.tiles, expand_duplicates=False),
         PLAIN_RUNS,
     )
+    kdev = {"window_count_totals": device_ms(lambda: kern.count_tiles(prep.tiles)),
+            "window_count_rows": device_ms(
+                lambda: kern.count_tiles_per_row(rows_prep.tiles)),
+            "window_count_totals_repeated": device_ms(
+                lambda: kern.count_tiles_repeated(prep.tiles, 3))}
     widths = sorted({int(p.shape[1]) for p, _ in prep.tiles})
     print(f"resident tiles: {len(prep.tiles)} tiles, packed={prep.packed}, widths {widths}, "
           f"{nbytes} payload bytes")
@@ -1256,6 +1450,8 @@ def run(dev) -> int:
           f"[{card}]")
     print(f"repeats=3 kernel  : {rep_ms:.4f} ms = {3 * nbytes / rep_ms * 1e3:.6e} payload B/s "
           f"(median of {SCAN_RUNS}); plain x3: {rep_plain_ms:.4f} ms [{card}]")
+    print(f"device time per pass, queued alone (median of {DEVICE_RUNS}): "
+          + ", ".join(f"{k} {fmt_ms(v)}" for k, v in kdev.items()) + f" [{card}]")
 
     # Where one count_pcap's wall time goes, phase by phase.
     phases = {}
@@ -1369,6 +1565,18 @@ def run(dev) -> int:
     win_ms = cuda_ms(lambda: win.count_tiles(prep2.tiles), SCAN_RUNS)
     filt_rows_ms = cuda_ms(lambda: big.kernels.count_tiles_per_row(rows_prep2.tiles), SCAN_RUNS)
     tab_rows_ms = cuda_ms(lambda: tab.kernels.count_tiles_per_row(rows_prep2.tiles), SCAN_RUNS)
+    kdev.update({
+        "filter_count_totals": device_ms(lambda: big.kernels.count_tiles(prep2.tiles)),
+        "table_count_totals": device_ms(lambda: tab.kernels.count_tiles(prep2.tiles)),
+        "filter_count_rows": device_ms(
+            lambda: big.kernels.count_tiles_per_row(rows_prep2.tiles)),
+        "table_count_rows": device_ms(
+            lambda: tab.kernels.count_tiles_per_row(rows_prep2.tiles)),
+    })
+    print(f"device time per pass, queued alone (median of {DEVICE_RUNS}): "
+          + ", ".join(f"{k} {fmt_ms(kdev[k])}" for k in ("filter_count_totals", "table_count_totals",
+                                                         "filter_count_rows", "table_count_rows"))
+          + f" [{card}]")
     rbytes2 = rows_prep2.total_payload_bytes
     print(f"rule-set resident tiles: {len(prep2.tiles)} tiles, packed={prep2.packed}, "
           f"{nbytes2} payload bytes")
@@ -1382,6 +1590,19 @@ def run(dev) -> int:
         ("table rows plain (1 run)", plain_rows_ms["table"], rbytes2),
     ):
         print(f"rule set {label}: {ms:.4f} ms = {b / ms * 1e3:.6e} payload B/s [{card}]")
+
+    # The per-position lookup does not grow with U: the filter kernels of
+    # the 87-pattern stand-in set and of the 3,072 rules over the same tiles.
+    std_filter = ct.CudaTableMatcher(matcher.window, dev, filtered=True)
+    check(torch.equal(std_filter.count_tiles(prep2.tiles), matcher.kernels.count_tiles(prep2.tiles)),
+          "stand-in filter kernels differ from the window kernel over the rule-set tiles")
+    std_filt_ms = cuda_ms(lambda: std_filter.count_tiles(prep2.tiles), SCAN_RUNS)
+    std_filt_dev = device_ms(lambda: std_filter.count_tiles(prep2.tiles))
+    print(f"filter kernels over the rule-set capture's {len(prep2.tiles)} tiles: "
+          f"{std_filter.num_unique} patterns ({len(std_filter.classes)} classes) "
+          f"{std_filt_ms:.4f} ms, {RULES} rules ({len(big.kernels.classes)} classes) "
+          f"{filt_ms:.4f} ms (medians of {SCAN_RUNS}); device time "
+          f"{fmt_ms(std_filt_dev)} and {fmt_ms(kdev['filter_count_totals'])} [{card}]")
 
     rs = [b"rs%06d" % i for i in range(RULES)]
     mrs = Matcher(rs, device=dev)
@@ -1404,22 +1625,40 @@ def run(dev) -> int:
     check(load_patterns(rules_file) == rules, "the rule file does not load back")
     serial_wall(cli, cap2, rules_file, rules, big_counts, card)
 
-    # Bounds of the phase 3-5 records, from these runs' inputs.
+    # Bounds of the phase 3-5 records, from these runs' inputs: the class
+    # route makes one pass (map test and lookups) per position per class
+    # launch, a shard block one pass with the probe column of the whole set.
     U1, U2, n_head = matcher.kernels.num_unique, big.kernels.num_unique, head2_p.shape[0]
+    w1, w1r = position_words(prep.tiles), position_words(rows_prep.tiles)
     bounds = {
-        "window_count_totals": window_bound(matcher.window, prep.tiles, nbytes, U1),
-        "window_count_rows": window_bound(matcher.window, rows_prep.tiles, rbytes,
-                                          head_p.shape[0] * U1),
-        "window_count_totals_repeated": window_bound(matcher.window, prep.tiles, nbytes, U1, reps=3),
+        "window_count_totals": window_bound(matcher.window, w1, nbytes, U1,
+                                            label="window_count_totals"),
+        "window_count_rows": window_bound(matcher.window, w1r, rbytes,
+                                          head_p.shape[0] * U1, label="window_count_rows"),
+        "window_count_totals_repeated": window_bound(matcher.window, w1, nbytes, U1,
+                                                     reps=3, label="window_count_totals reps=3"),
     }
-    head_bounds, i32 = {}, int32_ops_per_s()
+    del w1, w1r
+    w2, w2r = position_words(prep2.tiles), position_words(rows_prep2.tiles)
+    head_bounds = {}
     for form in ("filter", "table"):
-        full_ops = compare_ops(big.window, prep2.tiles, nbytes2, form == "filter")
-        head_ops = compare_ops(big.window, rows_prep2.tiles, rbytes2, form == "filter")
-        bounds[f"{form}_count_totals"] = bound(nbytes2 + 4 * U2, full_ops, i32)
-        head_bounds[(form, "totals")] = bound(rbytes2 + 4 * U2, head_ops, i32)
-        head_bounds[(form, "rows")] = bounds[f"{form}_count_rows"] = bound(
-            rbytes2 + 4 * n_head * U2, head_ops, i32)
+        filtered = form == "filter"
+        cols = [(c.words[:, c.K if filtered else 0], c.masks[:, c.K if filtered else 0])
+                for c in partition(big.window, filtered)[0]]
+        whole = tuple(np.concatenate(parts) for parts in zip(*cols))
+        full, head = probe_work(big.window, w2, filtered), probe_work(big.window, w2r, filtered)
+        bounds[f"{form}_count_totals"] = probe_bound(
+            f"{form}_count_totals", full, nbytes2, [lookups(w2, *c) for c in cols],
+            nbytes2 + 4 * U2)
+        per_class = [lookups(w2r, *c) for c in cols]
+        bounds[f"{form}_count_rows"] = probe_bound(f"{form}_count_rows", head, rbytes2,
+                                                   per_class, rbytes2 + 4 * n_head * U2)
+        block = [lookups(w2r, *whole)]
+        head_bounds[(form, "totals")] = probe_bound(f"shard_{form}_count_totals", head, rbytes2,
+                                                    block, rbytes2 + 4 * U2)
+        head_bounds[(form, "rows")] = probe_bound(f"shard_{form}_count_rows", head, rbytes2,
+                                                  block, rbytes2 + 4 * n_head * U2)
+    del w2, w2r
 
     # -- 6. the flow path ---------------------------------------------------
     halo_record = flow_phase(dev, card, patterns, pat_file, cw, ct)
@@ -1440,35 +1679,42 @@ def run(dev) -> int:
         {"name": "window_count_totals", "route": "cuda", "source": src,
          "replaces": f"{ref}:402", "launches": launches["window_count_totals"],
          "max_abs_err": max_err["window_count_totals"], "ms": tot_ms, "plain_ms": tot_plain_ms,
+         "device_ms": kdev["window_count_totals"],
          "library_ms": None, **bounds["window_count_totals"]},
         {"name": "window_count_rows", "route": "cuda", "source": src,
          "replaces": f"{ref}:450", "launches": launches["window_count_rows"],
          "max_abs_err": max_err["window_count_rows"], "ms": rows_ms, "plain_ms": rows_plain_ms,
+         "device_ms": kdev["window_count_rows"],
          "library_ms": None, **bounds["window_count_rows"]},
         {"name": "window_count_totals_repeated", "route": "cuda", "source": src,
          "replaces": f"{ref}:417", "launches": launches["window_count_totals_repeated"],
          "max_abs_err": max_err["window_count_totals_repeated"], "ms": rep_ms,
          "plain_ms": rep_plain_ms,
+         "device_ms": kdev["window_count_totals_repeated"],
          "library_ms": None, **bounds["window_count_totals_repeated"]},
         {"name": "table_count_totals", "route": "cuda", "source": tsrc,
          "replaces": f"{tref}:644", "launches": tab_launches["table_count_totals"],
          "max_abs_err": max(max_err["table_count_totals"], max_err["table_count_totals_repeated"]),
          "ms": tab_ms, "plain_ms": plain_ms["table"],
+         "device_ms": kdev["table_count_totals"],
          "library_ms": None, **bounds["table_count_totals"]},
         {"name": "table_count_rows", "route": "cuda", "source": tsrc,
          "replaces": f"{tref}:704", "launches": tab_launches["table_count_rows"],
          "max_abs_err": max_err["table_count_rows"], "ms": tab_rows_ms,
          "plain_ms": plain_rows_ms["table"],
+         "device_ms": kdev["table_count_rows"],
          "library_ms": None, **bounds["table_count_rows"]},
         {"name": "filter_count_totals", "route": "cuda", "source": tsrc,
          "replaces": f"{tref}:644", "launches": filt_launches["filter_count_totals"],
          "max_abs_err": max(max_err["filter_count_totals"], max_err["filter_count_totals_repeated"]),
          "ms": filt_ms, "plain_ms": plain_ms["filter"],
+         "device_ms": kdev["filter_count_totals"],
          "library_ms": None, **bounds["filter_count_totals"]},
         {"name": "filter_count_rows", "route": "cuda", "source": tsrc,
          "replaces": f"{tref}:704", "launches": filt_launches["filter_count_rows"],
          "max_abs_err": max_err["filter_count_rows"], "ms": filt_rows_ms,
          "plain_ms": plain_rows_ms["filter"],
+         "device_ms": kdev["filter_count_rows"],
          "library_ms": None, **bounds["filter_count_rows"]},
         halo_record,
         *shard_records,

@@ -188,12 +188,22 @@ class Matcher:
         return unique, max_len, total_words
 
     # The JAX package's placeholder for auto's AC route (see its api.py);
-    # not re-measured on the H100.
+    # not re-measured on the H100.  MSM_AC_GOTO_WALL overrides it (bytes;
+    # 0 turns the wall off), as in the JAX package.
     AC_GOTO_WALL_BYTES = 48 << 20
 
     def _ac_goto_too_big(self) -> bool:
+        """Would the AC engine's [states, 256] int32 goto table pass the
+        wall?  States are estimated from the pattern list alone (at most
+        the total pattern bytes + 1)."""
+        wall = self.AC_GOTO_WALL_BYTES
+        env = os.environ.get("MSM_AC_GOTO_WALL")
+        if env is not None:
+            wall = int(env)
+        if wall <= 0:
+            return False
         est_states = sum(len(p) for p in dict.fromkeys(self._match_patterns)) + 1
-        return est_states * 256 * 4 > self.AC_GOTO_WALL_BYTES
+        return est_states * 256 * 4 > wall
 
     def _requested_engine(self, engine: Optional[str]) -> str:
         """The engine a request names, ``auto`` decided by the JAX package's
@@ -236,6 +246,17 @@ class Matcher:
             "nul_patterns": any(0 in p for p in unique),
             "device": str(self.device),
         }
+        if self.engine == "auto" and (
+            total_words > 50_000 and max_len <= 256 and self._ac_goto_too_big()
+        ):
+            # auto's size rule wanted AC, but its goto table passes the wall:
+            # the JAX package's note, word for word.
+            out["auto_note"] = (
+                "ac goto table exceeds the compile wall "
+                f"(~{(sum(len(p) for p in unique) + 1) * 1024} bytes > "
+                f"{self.AC_GOTO_WALL_BYTES}); falling back to the filtered "
+                "table kernel"
+            )
         if eng == "pallas":
             if self._pallas_table_selected(total_words):
                 out["pallas_kernel"] = (

@@ -378,7 +378,6 @@ def _match_flow_stream(a, matcher, timer) -> int:
     counts = fs.counts()
     if a.json:
         ex = _execution_blob(matcher, actual=fse)
-        ex["flow_rounds"] = "window_count_halo" if fs._use_halo_kernel() else "plain"
         blob = {
             "patterns": [pt.decode("latin-1") for pt in matcher.patterns],
             "counts": counts.tolist(),

@@ -7,7 +7,9 @@ Native libraries are built here, each on first use:
   pcap_ingest.cpp``, read by path, never imported) with ``g++``;
 - the Hopper kernels (``csrc/*.cu``) with ``nvcc`` for ``sm_90a``, one
   library per source, each a plain C interface bound with ctypes
-  (:class:`KernelLibrary`).
+  (:class:`KernelLibrary`).  A library is rebuilt when its library file is
+  older than any of its sources or of the headers they include by a quoted
+  path (``csrc/probe.cuh``); ``nvcc`` is handed the ``.cu`` files only.
 
 Every build compiles to a per-process temporary name and renames it into
 place, so concurrent processes (pytest workers, a CLI beside a benchmark)
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -42,6 +45,24 @@ def is_stale(out: pathlib.Path, sources: Sequence[pathlib.Path]) -> bool:
         return True
     mtime = out.stat().st_mtime
     return any(s.stat().st_mtime > mtime for s in sources)
+
+
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def dependencies(sources: Sequence[pathlib.Path]) -> List[pathlib.Path]:
+    """``sources`` and every existing header they include by a quoted path,
+    directly or through another header, resolved against the including
+    file's directory: the files whose changes make a library stale."""
+    found: List[pathlib.Path] = []
+    todo = [pathlib.Path(s) for s in sources]
+    while todo:
+        path = todo.pop(0)
+        if path in found or not path.exists():
+            continue
+        found.append(path)
+        todo += [path.parent / m.decode() for m in _QUOTED_INCLUDE.findall(path.read_bytes())]
+    return found
 
 
 # A compile that takes longer than this is stuck: the kernels build in
@@ -96,19 +117,22 @@ def find_nvcc() -> str:
 
 def build_cuda(name: str, sources: Sequence[pathlib.Path], *,
                verbose_ptxas: bool = False) -> "tuple[pathlib.Path, float, str]":
-    """Build ``sources`` into ``build/lib<name>.so`` when stale.
+    """Build ``sources`` into ``build/lib<name>.so`` when it is stale against
+    them or the headers they include; only the ``.cu`` files among them go
+    to ``nvcc``.
 
     Returns ``(path, seconds spent compiling, compiler output)``; seconds is
     0 when the library was already current.
     """
     out = BUILD_DIR / f"lib{name}.so"
-    if not is_stale(out, sources):
+    if not is_stale(out, dependencies(sources)):
         return out, 0.0, ""
     flags = list(NVCC_FLAGS)
     if verbose_ptxas:
         flags += ["-Xptxas", "-v"]
     t0 = time.perf_counter()
-    log = compile_to([find_nvcc(), *flags], sources, out)
+    units = [s for s in sources if pathlib.Path(s).suffix == ".cu"]
+    log = compile_to([find_nvcc(), *flags], units, out)
     return out, time.perf_counter() - t0, log
 
 

@@ -11,7 +11,10 @@ shard's table block: the TPU's ``ShardTableKernel.counts`` and ``.rows``.
 
 The wrappers take the plain versions (ops/table.table_count and
 filter_count) for tensors on the CPU and launch the kernel for tensors on a
-CUDA device; on a CUDA tensor they launch or raise, never fall back.
+CUDA device; on a CUDA tensor they launch or raise, never fall back: a
+class whose probe column (word 0, or the filter column K) holds more than
+``cuda_window.MAX_PROBE_MASKS`` distinct non-zero masks raises
+``ValueError``.
 ``LAUNCHES`` counts kernel launches by name (a totals launch with
 ``reps > 1`` counts as ``<name>_repeated``, a :class:`ShardTableKernel`
 launch as ``shard_<name>``).
@@ -28,6 +31,7 @@ import torch
 from multithreading_string_matching_tpu_torch.ops._build import CSRC_DIR, KernelLibrary
 from multithreading_string_matching_tpu_torch.ops.cuda_window import (
     TileCountSurface,
+    check_probe_masks,
     check_tile,
     check_totals_bound,
     device_kind,
@@ -76,6 +80,8 @@ def _check(payload, lengths, words, masks, lens, K: int, filtered: bool) -> None
         )
     if K < 1 or K > 512:
         raise ValueError(f"word count K={K} outside the kernels' 1..512")
+    if words.shape[0]:
+        check_probe_masks(masks, K if filtered else 0)
 
 
 def _launch(name: str, payload, lengths, words, masks, lens, out, K: int, reps: int = 1,

@@ -15,6 +15,13 @@ CUDA tensor they launch or raise, never fall back.  ``LAUNCHES`` counts
 kernel launches by name (a totals launch with ``reps > 1`` counts as
 ``window_count_totals_repeated``), so a run can show that its main path
 went through the kernels.
+
+Both this library and the table kernels' (ops/cuda_table.py) look every
+staged position up in a hash of the patterns' probe words, one lookup per
+distinct probe mask (``csrc/probe.cuh``).  A table whose probe column holds
+more than :data:`MAX_PROBE_MASKS` distinct non-zero masks is refused with
+``ValueError`` (:func:`check_probe_masks`); the pattern programs give at
+most four.
 """
 
 from __future__ import annotations
@@ -33,6 +40,9 @@ from multithreading_string_matching_tpu_torch.ops.window import (
 
 SOURCES = [CSRC_DIR / "window_count.cu"]
 
+# csrc/probe.cuh: distinct non-zero probe masks a launch hashes (kMaxMasks).
+MAX_PROBE_MASKS = 8
+
 # Kernel launches by kernel name, for this process.  Incremented only where
 # a wrapper launches its kernel.
 LAUNCHES: Dict[str, int] = {
@@ -50,6 +60,9 @@ LIBRARY = KernelLibrary("msm_window_count", SOURCES, {
     "msm_window_count_halo": [ctypes.c_void_p] * 7 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p],
+    # key, mask index, patterns, out slot (no device work)
+    "msm_probe_bucket": [ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_int)],
 })
 load_library = LIBRARY.load
 BUILD_INFO = LIBRARY.build_info
@@ -103,6 +116,35 @@ def device_kind(t: torch.Tensor, kernel: str = "window-count") -> str:
     return t.device.type
 
 
+def probe_bucket(key: int, mask_index: int, num_patterns: int) -> int:
+    """The head slot of probe key ``key`` under the launch's ``mask_index``-th
+    probe mask, in a launch over ``num_patterns`` patterns, as the kernels
+    compute it (csrc/probe.cuh, through the library's ``msm_probe_bucket``:
+    the library is built, so this needs ``nvcc``)."""
+    slot = ctypes.c_int()
+    LIBRARY.call("msm_probe_bucket", key & 0xFFFFFFFF, mask_index, num_patterns,
+                 ctypes.byref(slot))
+    return slot.value
+
+
+def check_probe_masks(masks: torch.Tensor, col: int) -> None:
+    """Raise ``ValueError`` when column ``col`` of ``masks`` (the probe
+    column) holds more than :data:`MAX_PROBE_MASKS` distinct non-zero masks.
+    The count is kept on the tensor and made again after an in-place change
+    (its version counter), so a matcher's staged tables pay it once."""
+    key = (col, masks._version)
+    seen = getattr(masks, "_msm_probe_masks", None)
+    if seen is None or seen[0] != key:
+        probe = masks[:, col]
+        seen = (key, int(torch.unique(probe[probe != 0]).numel()))
+        masks._msm_probe_masks = seen
+    if seen[1] > MAX_PROBE_MASKS:
+        raise ValueError(
+            f"the probe column holds {seen[1]} distinct non-zero masks; the kernels "
+            f"hash at most {MAX_PROBE_MASKS}"
+        )
+
+
 def _check(payload, lengths, words, masks, lens) -> None:
     check_tile(payload, lengths, (("words", words, 2), ("masks", masks, 2), ("lens", lens, 1)))
     U = words.shape[0]
@@ -111,6 +153,8 @@ def _check(payload, lengths, words, masks, lens) -> None:
             f"table shapes disagree: words {tuple(words.shape)}, "
             f"masks {tuple(masks.shape)}, lens {tuple(lens.shape)}"
         )
+    if U and words.shape[1]:
+        check_probe_masks(masks, 0)
 
 
 def _launch(name: str, payload, lengths, words, masks, lens, out, reps: int = 1) -> None:

@@ -9,7 +9,8 @@ post-scatter, mpi_dumping.c:166-168; live prints no time).  Here every run
 records named phases — ingest / extract / compile / h2d / scan / reduce —
 so numbers are comparable across execution modes, plus a total.
 
-:func:`cuda_ms` times device work with CUDA events, and :func:`card_line`
+:func:`cuda_ms` times device work with CUDA events, :func:`queued_ms` the
+device time of one call queued ahead of the card, and :func:`card_line`
 names the card and its power limit, to be printed beside every such time.
 """
 
@@ -20,7 +21,7 @@ import subprocess
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 
 @dataclass
@@ -72,3 +73,35 @@ def cuda_ms(fn, runs: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, runs: int = 3) -> Tuple[float, bool]:
+    """``(milliseconds, clean)``: the median device time of one call of
+    ``fn`` queued alone behind ``torch.cuda._sleep`` (about twice the
+    call's own time), CUDA events around the call.  ``clean`` is true when
+    in every run the host had enqueued the whole call while the card still
+    slept (the call's start event not yet reached): then the host's time
+    between launches, which :func:`cuda_ms` holds where the host is the
+    slower side, is not in it.  Otherwise the host fell behind (a full
+    launch queue blocks it) and the time is an upper bound.  ``fn`` must not
+    synchronise."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    times, clean = [], True
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(4e9 * call_s) + 10_000_000)  # cycles: ~2x the call at <= 2 GHz
+        start.record()
+        fn()
+        end.record()
+        clean &= not start.query()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), clean

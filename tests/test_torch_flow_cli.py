@@ -81,6 +81,21 @@ def test_flows_json_equals_jax(capture, capsys, monkeypatch, flags):
         assert set(got["phases"]) == {"ingest", "extract", "scan"}
 
 
+@pytest.mark.parametrize("flags", [[], ["--reorder"]], ids=["capture-order", "reorder"])
+def test_flow_stream_execution_keys_equal_jax(capture, capsys, monkeypatch, flags):
+    """``match --flows --stream --json`` reports the JAX package's execution
+    keys; ``device`` is the port's one addition (which card or the CPU)."""
+    monkeypatch.setenv("MSM_DEVICE", "cpu")
+    argv = ["match", "--pcap", str(capture), "--patterns", str(STANDIN), "--mode", "tcp",
+            "--json", "--flows", "--stream", "--engine", "window", *flags]
+    got = _json(pt_main, argv, capsys)["execution"]
+    want = _json(jax_main, argv, capsys)["execution"]
+    assert set(got) - {"device"} == set(want)
+    assert got["device"] == "cpu" and "flow_rounds" not in got
+    for key in want:
+        assert got[key] == want[key], key
+
+
 def test_flow_stream_counts_split_signatures(capture, capsys, monkeypatch):
     """The reassembled counts exceed the per-packet counts: signatures
     split across segments count once in the stream."""

@@ -69,6 +69,52 @@ TABLE_CASES = {
 }
 
 
+def _one_bucket(n, alphabet, seed):
+    """``n`` 4-byte patterns whose probe keys share one hash bucket of a
+    launch over ``n`` patterns with one probe mask, by the kernels' own hash
+    (``cw.probe_bucket``: the library's ``msm_probe_bucket``)."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(alphabet, np.uint8)
+    groups = {}
+    while True:
+        pat = bytes(letters[rng.integers(0, len(letters), size=4)].tolist())
+        group = groups.setdefault(cw.probe_bucket(int.from_bytes(pat, "little"), 0, n), set())
+        group.add(pat)
+        if len(group) == n:
+            return sorted(group)
+
+
+def _long_rules(n, seed):
+    """``n`` unique patterns of 29-32 bytes: one word-count class, K = 8."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789", np.uint8)
+    out = {}
+    while len(out) < n:
+        out.setdefault(bytes(letters[rng.integers(0, 36, size=int(rng.integers(29, 33)))]), None)
+    return list(out)
+
+
+HEX16 = b"0123456789abcdef"
+# Cases aimed at the hashed probe: name: (patterns, seed, rows, width,
+# alphabet); a callable makes its patterns on the card (the library's hash).
+PROBE_CASES = {
+    "one-probe-key-3072": ([b"HTTP/1.%04d" % i for i in range(3072)], 71, 64, 300,
+                           b"HTP/1.0123456789"),
+    "one-bucket": (lambda: _one_bucket(64, HEX16, 72), 72, 64, 300, HEX16),
+    "four-masks-1-2-3-4-bytes": ([b"a", b"b", b"ab", b"ca", b"abc", b"bca", b"abca", b"cabc",
+                                  b"abcab"], 73, 64, 200, b"abc"),
+    "nul-inside-keys": ([b"\x00a\x00b", b"a\x00\x00", b"\x00", b"\x00\x00\x00\x00",
+                         b"a\x00b\x00c\x00d\x00", b"\x00\x00ab"], 74, 64, 120, b"ab\x00"),
+    "filter-word-twice": ([b"wxyzabcdwxyz", b"abcdefgh", b"ijklabcd", b"abcdmnop",
+                           b"qrstabcd"], 75, 64, 200, b"wxyzabcd"),
+    "u1-k8": ([b"abcdefghijklmnopqrstuvwxyz012345"], 76, 64, 300, b"abcdefghijklmnopqrstuvwxyz012345"),
+    "u3072-k8": (_long_rules(3072, 77), 77, 128, 400, b"abcdefghijklmnopqrstuvwxyz0123456789"),
+    # more patterns than one hash table holds (csrc/probe.cuh kMaxChunk =
+    # 4,096): three chunks, each re-staging the tile
+    "u9000-three-chunks":([b"c%05d" % i for i in range(9000)], 78, 64, 300, b"c0123456789"),
+}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -217,6 +263,104 @@ def test_large_set_matcher_on_card_equals_plain_on_cpu(cuda_device):
         assert np.array_equal(gpu.count(payloads, lengths, staging=staging), want)
     assert np.array_equal(gpu.count(payloads, lengths, per_packet=True),
                           cpu.count(payloads, lengths, per_packet=True))
+
+
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_probe_cases_equal_plain(cuda_device, case):
+    """The hash's hard cases, on planted rows: every kernel of both
+    libraries (window totals with reps 1 and 3, rows, halo; table and
+    filter totals with reps 1 and 3, rows) equals its plain version."""
+    pats, seed, n, L, alphabet = PROBE_CASES[case]
+    pats = pats() if callable(pats) else pats
+    p, ln = _tile(seed, n, L, alphabet, cuda_device, plant=pats)
+    wp = WindowProgram.build(pats)
+    words, masks, lens = wp.tables(cuda_device)
+    want = window_count(words, masks, lens, p, ln)
+    assert want.sum() > 0
+    for reps in (1, 3):
+        got = cw.window_count_totals(p, ln, words, masks, lens, reps=reps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, reps * want), reps
+    got = cw.window_count_rows(p, ln, words, masks, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, window_count(words, masks, lens, p, ln, per_packet=True))
+    H = max(int(wp.max_len) - 1, 1)
+    ms = torch.from_numpy(np.random.default_rng(seed).integers(0, H + 1, size=n).astype(np.int32))
+    ms = ms.to(cuda_device)
+    eff = torch.clamp(ln, min=0)
+    got = cw.window_count_halo(p, eff, ms, words, masks, lens, H)
+    torch.cuda.synchronize()
+    assert torch.equal(got, window_count_halo_plain(p, eff, ms, H, (words, masks, lens)))
+    for filtered in (False, True):
+        plain = filter_count if filtered else table_count
+        totals = ct.filter_count_totals if filtered else ct.table_count_totals
+        rows = ct.filter_count_rows if filtered else ct.table_count_rows
+        for c in partition(wp, filtered)[0]:
+            tabs = c.tables(cuda_device)
+            want = plain(*tabs, p, ln, c.K)
+            for reps in (1, 3):
+                got = totals(p, ln, *tabs, c.K, reps=reps)
+                torch.cuda.synchronize()
+                assert torch.equal(got, reps * want), (filtered, c.K, reps)
+            got = rows(p, ln, *tabs, c.K)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain(*tabs, p, ln, c.K, per_row=True)), (filtered, c.K)
+
+
+def test_probe_bucket_is_the_kernels_hash(cuda_device):
+    """``cw.probe_bucket`` asks the library (``msm_probe_bucket``): table
+    sizes are the least power of two >= twice a chunk's patterns, at least
+    64, and a chunk holds at most 4,096 patterns; the one-bucket case's keys
+    really share a bucket, and a bad mask index is refused."""
+    assert {cw.probe_bucket(k, 0, 1) for k in range(4096)} == set(range(64))
+    assert {cw.probe_bucket(k, 0, 64) for k in range(1 << 16)} == set(range(128))
+    assert max(cw.probe_bucket(k, 3, 3072) for k in range(1 << 16)) == 8191
+    assert max(cw.probe_bucket(k, 0, 100_000) for k in range(1 << 16)) == (1 << 13) - 1
+    key = int.from_bytes(b"HTTP", "little")
+    assert cw.probe_bucket(key, 0, 64) != cw.probe_bucket(key, 1, 64)  # the mask index hashes
+    pats = _one_bucket(64, HEX16, 72)
+    assert len({cw.probe_bucket(int.from_bytes(q, "little"), 0, 64) for q in pats}) == 1
+    with pytest.raises(RuntimeError, match="msm_probe_bucket"):
+        cw.probe_bucket(key, cw.MAX_PROBE_MASKS, 64)
+
+
+def test_probe_wildcards_and_mask_limit(cuda_device):
+    """A probe of mask 0 and word 0 fires everywhere, and the C entry points
+    take a ninth probe mask on the same wildcard chain: both stay exact.
+    The wrappers refuse more than MAX_PROBE_MASKS probe masks."""
+    p, ln = _tile(81, 48, 160, b"abcd", cuda_device, plant=[b"abcdabcd", b"dcba"])
+    # Pattern 0: any 4 bytes, then "abcd"; 1: "dcba"; 2: never fires.
+    words = torch.tensor([[0, int.from_bytes(b"abcd", "little")],
+                          [int.from_bytes(b"dcba", "little"), 0], [1, 0]], dtype=torch.int32)
+    masks = torch.tensor([[0, -1], [-1, 0], [0, 0]], dtype=torch.int32)
+    lens = torch.tensor([8, 4, 4], dtype=torch.int32)
+    words, masks, lens = words.to(cuda_device), masks.to(cuda_device), lens.to(cuda_device)
+    want = table_count(words, masks, lens, p, ln, 2)
+    assert want[0] > 0 and want[1] > 0 and want[2] == 0
+    got = ct.table_count_totals(p, ln, words, masks, lens, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(cw.window_count_totals(p, ln, words, masks, lens), want)
+    # Nine probe masks: the wrappers raise; the C entry point counts exactly.
+    nine = [(1 << (8 * (b + 1))) - 1 for b in range(3)] + [0xFFFFFFFF, 0xFF00, 0xFF0000,
+                                                         0xFF000000, 0x00FF00FF, 0xFFFF0000]
+    pats = [b"abcd", b"bcda", b"cdab", b"dabc", b"aabb", b"abab", b"dddd", b"acac", b"cdcd"]
+    w9 = torch.tensor([int.from_bytes(q, "little") & m for q, m in zip(pats, nine)],
+                      dtype=torch.int64).to(torch.int32)[:, None]
+    m9 = torch.tensor(nine, dtype=torch.int64).to(torch.int32)[:, None]
+    l9 = torch.full((9,), 4, dtype=torch.int32)
+    w9, m9, l9 = w9.to(cuda_device), m9.to(cuda_device), l9.to(cuda_device)
+    with pytest.raises(ValueError, match="masks"):
+        cw.window_count_totals(p, ln, w9, m9, l9)
+    with pytest.raises(ValueError, match="masks"):
+        ct.table_count_rows(p, ln, w9, m9, l9, 1)
+    want = window_count(w9, m9, l9, p, ln)
+    out = torch.zeros(9, dtype=torch.int32, device=cuda_device)
+    cw.LIBRARY.call("msm_window_count_totals", p.data_ptr(), ln.data_ptr(), w9.data_ptr(),
+                    m9.data_ptr(), l9.data_ptr(), out.data_ptr(), p.shape[0], p.shape[1], 9, 1,
+                    1, 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and want.sum() > 0
 
 
 # -- the halo kernel (flow-stream rounds) ------------------------------------

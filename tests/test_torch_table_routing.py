@@ -267,3 +267,24 @@ def test_match_json_large_file_equals_jax(capture, large_file, table_calls, caps
         assert got[key] == want[key], key
     assert got["execution"]["pallas_kernel"] == "table+filter"
     assert got["execution"]["device"] == "cpu"
+
+
+WALL_SET = [b"wl%06d" % i for i in range(26_000)]  # 52,000 words: past auto's AC switch
+
+
+@pytest.mark.parametrize("wall", [None, "0", "100000"], ids=["default", "off", "small"])
+def test_auto_ac_goto_wall_equals_jax(jax_pallas_route, wall):
+    """``engine="auto"`` on a 26,000 x 8-byte set resolves as the JAX Matcher
+    does under ``MSM_AC_GOTO_WALL`` (bytes; 0 turns the wall off), and
+    ``explain()`` carries the JAX ``auto_note`` word for word."""
+    if wall is None:
+        jax_pallas_route.delenv("MSM_AC_GOTO_WALL", raising=False)
+    else:
+        jax_pallas_route.setenv("MSM_AC_GOTO_WALL", wall)
+    m, jm = Matcher(WALL_SET, engine="auto", device="cpu"), JaxMatcher(WALL_SET, engine="auto")
+    got, want = m._requested_engine(None), jm._resolve_engine(None)
+    assert got == want == ("ac" if wall == "0" else "pallas")
+    ex, jx = m.explain(), jm.explain()
+    assert ex["engine_resolved"] == jx["engine_resolved"] == want
+    assert ex.get("auto_note") == jx.get("auto_note")
+    assert ("auto_note" in ex) == (wall != "0")
