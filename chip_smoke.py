@@ -90,6 +90,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    first 1,024 rows of one tile beside the kernel on the same rows, and
    the mxu, table and window kernels over phase 3's tiles alternated over
    ``ALT_ROUNDS`` rounds.
+9. The streamed packet path (``parallel/pipeline.py`` through
+   ``parallel/stager.py``'s pinned, double-buffered tile staging), on phase
+   3's and phase 5's captures, each run with the launch counters reset just
+   before and held to its counts and launches (no other kernel launched):
+   ``count_pcap_streamed`` on the stand-in capture (``window_count_totals``
+   once per packed [4096 x 2048] tile) async and with ``sync_dispatch``,
+   with 0 and ``min(8, cpus)`` host workers, with ``tile_rows=64`` (the
+   3-slot ring turned hundreds of times) and with a drain after every
+   tile; ``count_pcap_pipelined`` (one launch per 100-packet batch); the
+   3,072 rules (one filter launch per class and tile; the table kernels with
+   ``MSM_PALLAS_FILTER=0``; one shard launch per tile on the pattern axis);
+   the stand-in set and the 3,072 rules each plus a NUL pattern, against
+   their one-shot counts (the rows kernels, one launch per class and
+   8,192-packet chunk); and the ``data``, ``task`` (4 threads) and ``match
+   --stream --json`` commands against ``serial``'s counts.  Times: the
+   streamed end-to-end rate (payload bytes / wall, median of 3 after a warm
+   run) async and sync and their ratio, the host stages alone with 0 and N
+   workers (best of 3, as ``bench.py:291-318``), the ``data`` and ``task``
+   walls, and one streamed pass split into host seconds (ingest + extract,
+   pack, stager wait, copy and launch enqueue) and the device time of its
+   copies and kernels (CUDA events on the copy and compute streams).  The
+   window, table and filter records gain ``stream_launches``.
 
 The line before the last is one JSON object with a record per kernel, each
 with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -447,18 +469,11 @@ def serial_wall(cli, cap, pat_file, patterns, counts, card) -> float:
     report must equal ``counts``."""
     serial_s = []
     for _ in range(SERIAL_RUNS):
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(["serial", str(cap), str(pat_file), "udp"])
-        serial_s.append(time.perf_counter() - t0)
+        reported, rc, wall = report_of(cli, ["serial", cap, pat_file, "udp"])
+        serial_s.append(wall)
         check(rc == 0, f"serial exited {rc}")
-        reported = {}
-        for line in out.getvalue().splitlines()[1:-1]:
-            name, _, rest = line.rpartition(": ")
-            reported.setdefault(name, int(rest.split()[0]))
-        want = {p.decode("latin-1"): int(c) for p, c in zip(patterns, counts) if c}
-        check(reported == want, f"serial report differs from the main-path counts ({pat_file})")
+        check(reported == nonzero(patterns, counts),
+              f"serial report differs from the main-path counts ({pat_file})")
     med = statistics.median(serial_s)
     print(f"serial wall ({len(patterns)} patterns): median {med:.4f} s of {SERIAL_RUNS} "
           f"({', '.join(f'{s:.4f}' for s in serial_s)}) [{card}]")
@@ -1253,6 +1268,237 @@ def mxu_phase(dev, card: str, mx, matcher, prep, std_counts, head_p, head_l) -> 
             **bound(nbytes + 4 * mxm.num_unique, ops, mxu_match.INT8_TENSOR_OPS_PER_S)}
 
 
+def report_of(cli, argv):
+    """``({pattern: count}, exit code, wall seconds)`` of one command whose
+    stdout is the reference's report (nonzero counts, first line a header,
+    last the elapsed time)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    wall = time.perf_counter() - t0
+    reported = {}
+    for line in out.getvalue().splitlines()[1:-1]:
+        name, _, rest = line.rpartition(": ")
+        reported.setdefault(name, int(rest.split()[0]))
+    return reported, rc, wall
+
+
+def nonzero(patterns, counts) -> dict:
+    return {p.decode("latin-1"): int(c) for p, c in zip(patterns, counts) if c}
+
+
+STREAM_TILE = (4096, 2048)   # count_pcap_streamed's default tile
+STREAM_BATCH = 8192          # and its ingest batch
+TASK_BATCH = 100             # count_pcap_pipelined's batch
+
+
+def stream_phase(dev, card: str, cw, ct, matcher, patterns, pat_file, cap, counts, big, rules,
+                 cap2, big_counts) -> dict:
+    """Phase 9, the streamed packet path; returns the launches of one
+    streamed pass by kernel name (for the kernel records)."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch import cli
+    from multithreading_string_matching_tpu_torch.api import Matcher
+    from multithreading_string_matching_tpu_torch.ops.bucketing import pack_rows
+    from multithreading_string_matching_tpu_torch.parallel import pipeline as pp
+
+    t_phase = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    rows, width = STREAM_TILE
+
+    def drive(label, fn, want, expect) -> float:
+        """One run with the launch counters reset just before: its counts
+        must equal ``want`` and its launches ``expect`` (no other kernel);
+        returns its wall seconds."""
+        torch.cuda.synchronize()
+        reset_launches(cw, ct)
+        t0 = time.perf_counter()
+        got = fn()
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
+        check(np.array_equal(np.asarray(got), want), f"{label}: counts differ")
+        check(launched == expect, f"{label}: launches {launched}, expected {expect}")
+        return wall
+
+    def host_pass(path, n_workers: int):
+        """``(payload bytes / s, packed rows)`` of the streamed path's host
+        stages alone (ingest, extract, pack; bench.py:291-318)."""
+        n_bytes = packed = 0
+        t0 = time.perf_counter()
+        for _c, b in pp._iter_extracted(path, "udp", STREAM_BATCH, False, False, False,
+                                        n_workers):
+            n_bytes += b.total_payload_bytes
+            lens = b.lengths.astype(np.int64)
+            rows_c, fill = pack_rows(b.payloads, np.where(lens > width, 0, lens), width=width)
+            packed += rows_c.shape[0] if fill.any() else 0
+        return n_bytes / (time.perf_counter() - t0), packed
+
+    host_bps = {}
+    for w in (0, workers):
+        runs = [host_pass(cap, w) for _ in range(3)]
+        host_bps[w], packed = max(r[0] for r in runs), runs[0][1]
+    tiles, small_tiles = -(-packed // rows), -(-packed // 64)
+    print(f"host stages alone (ingest + extract + pack, best of 3): host_workers=0 "
+          f"{host_bps[0]:.6e} B/s, host_workers={workers} {host_bps[workers]:.6e} B/s; "
+          f"{packed} packed rows = {tiles} tiles of {rows} x {width} [{card}]")
+
+    # The stand-in capture: async and sync schedules, host workers, a forced
+    # drain, small tiles.
+    std = {"window_count_totals": tiles}
+    stats = {}
+    pp.count_pcap_streamed(matcher, cap, "udp")  # warm
+    walls = {}
+    for label, kw in (("async", {}), ("sync", {"sync_dispatch": True})):
+        walls[label] = [drive(f"streamed {label}", lambda: pp.count_pcap_streamed(
+            matcher, cap, "udp", stats=stats, **kw), counts, std) for _ in range(STREAM_RUNS)]
+    nbytes = stats["payload_bytes"]
+    e2e = {k: nbytes / statistics.median(v) for k, v in walls.items()}
+    print(f"streamed count_pcap_streamed, {nbytes} payload bytes, {tiles} tiles: async median "
+          f"{statistics.median(walls['async']):.4f} s = {e2e['async']:.6e} B/s "
+          f"({', '.join(f'{s:.4f}' for s in walls['async'])}); sync median "
+          f"{statistics.median(walls['sync']):.4f} s = {e2e['sync']:.6e} B/s "
+          f"({', '.join(f'{s:.4f}' for s in walls['sync'])}); async/sync ratio "
+          f"{e2e['async'] / e2e['sync']:.4f} [{card}]")
+    for w in (0, workers):
+        s = drive(f"host_workers={w}", lambda: pp.count_pcap_streamed(
+            matcher, cap, "udp", host_workers=w), counts, std)
+        print(f"streamed, host_workers={w}: {s:.4f} s = {nbytes / s:.6e} B/s [{card}]")
+    s = drive("tile_rows=64", lambda: pp.count_pcap_streamed(matcher, cap, "udp", tile_rows=64),
+              counts, {"window_count_totals": small_tiles})
+    print(f"streamed, tile_rows=64: {small_tiles} tiles through 3 slots, {s:.4f} s [{card}]")
+    drains = []
+    real_drain, real_positions = pp.PackedTileCounter._drain, pp.DRAIN_POSITIONS
+
+    def counted_drain(self):
+        drains.append(self._total is not None)
+        real_drain(self)
+
+    pp.PackedTileCounter._drain, pp.DRAIN_POSITIONS = counted_drain, rows * width
+    try:
+        drive("forced drain", lambda: pp.count_pcap_streamed(matcher, cap, "udp"), counts, std)
+    finally:
+        pp.PackedTileCounter._drain, pp.DRAIN_POSITIONS = real_drain, real_positions
+    check(sum(drains) == tiles, f"forced drain: {sum(drains)} drains of {tiles} tiles")
+    print(f"forced drain after every tile: {sum(drains)} drains, counts equal")
+
+    # Where one streamed pass spends its time: the loop of
+    # count_pcap_streamed with host clocks, and CUDA events on the stager's
+    # copy stream and on the compute stream.
+    counter = pp.PackedTileCounter(matcher)
+    counter.stager.timed = True
+    torch.cuda.synchronize()
+    reset_launches(cw, ct)
+    split = {"ingest+extract": 0.0, "add": 0.0}
+    t0 = time.perf_counter()
+    it = pp._iter_extracted(cap, "udp", STREAM_BATCH, False, False, False, 0)
+    while True:
+        ta = time.perf_counter()
+        got = next(it, None)
+        tb = time.perf_counter()
+        split["ingest+extract"] += tb - ta
+        if got is None:
+            break
+        counter.add(got[1].payloads, got[1].lengths)
+        split["add"] += time.perf_counter() - tb
+    tc = time.perf_counter()
+    got = counter.totals()
+    split["final flush + drain"] = time.perf_counter() - tc
+    wall = time.perf_counter() - t0
+    check(np.array_equal(got, counts) and counter.tiles_dispatched == tiles
+          and cw.LAUNCHES["window_count_totals"] == tiles, "split pass")
+    st = counter.stager
+    split["stager wait"], split["enqueue (copies + launches)"] = st.wait_s, st.enqueue_s
+    split["pack"] = split.pop("add") - st.wait_s - st.enqueue_s
+    dms = st.device_ms()
+    print(f"one streamed pass: {wall:.4f} s wall; host " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in split.items()) + f"; device: copies {dms['copy']:.4f} ms, "
+          f"kernels {dms['kernel']:.4f} ms over {tiles} tiles; (copies + kernels) / wall "
+          f"{(dms['copy'] + dms['kernel']) / 1e3 / wall:.4f} [{card}]")
+
+    # The task pipeline: one window_count_totals launch per 100-packet batch.
+    batches = -(-MAIN_PACKETS // TASK_BATCH)
+    s = drive("count_pcap_pipelined", lambda: pp.count_pcap_pipelined(matcher, cap, "udp"),
+              counts, {"window_count_totals": batches})
+    print(f"count_pcap_pipelined (batch {TASK_BATCH}): {s:.4f} s = {nbytes / s:.6e} B/s, "
+          f"{batches} launches [{card}]")
+
+    # The 3,072 rules: filter kernels (8 class launches a tile), the table
+    # kernels with MSM_PALLAS_FILTER=0, and the pattern axis on one card.
+    packed2 = host_pass(cap2, 0)[1]
+    tiles2 = -(-packed2 // rows)
+    n_cls = len(big.kernels.classes)
+    launches = {"window_count_totals": tiles, "filter_count_totals": n_cls * tiles2,
+                "shard_filter_count_totals": tiles2}
+    s = drive("3,072 rules streamed", lambda: pp.count_pcap_streamed(big, cap2, "udp"), big_counts,
+              {"filter_count_totals": launches["filter_count_totals"]})
+    print(f"3,072 rules streamed: {s:.4f} s, {tiles2} tiles x {n_cls} classes [{card}]")
+    s = drive("3,072 rules pattern-sharded stream", lambda: pp.count_pcap_streamed(
+        big, cap2, "udp", sharded=True, shard_axis="patterns"), big_counts,
+        {"shard_filter_count_totals": tiles2})
+    print(f"3,072 rules streamed, --shard-axis patterns (one shard): {s:.4f} s [{card}]")
+
+    # NUL sets: the per-row fallback (rows kernels, one launch per chunk and
+    # class), held against their one-shot counts.
+    chunks = -(-MAIN_PACKETS // STREAM_BATCH)
+    nul = Matcher(patterns + [b"\x00\x00"], device=dev)
+    want = nul.count_pcap(cap, "udp")
+    check(np.array_equal(want[:-1], counts) and want[-1] > 0, "NUL set one-shot")
+    route_walls = {"stand-in + NUL": drive("NUL set streamed", lambda: pp.count_pcap_streamed(
+        nul, cap, "udp"), want, {"window_count_rows": chunks})}
+    launches["window_count_rows"] = chunks
+    big_nul = Matcher(rules + [b"\x00\x00"], device=dev)
+    want2 = big_nul.count_pcap(cap2, "udp")
+    check(np.array_equal(want2[:-1], big_counts) and want2[-1] > 0, "NUL rule set one-shot")
+    n_cls_nul = len(big_nul.kernels.classes)
+    launches["filter_count_rows"] = n_cls_nul * chunks
+    route_walls["3,072 rules + NUL"] = drive(
+        "NUL rule set streamed", lambda: pp.count_pcap_streamed(big_nul, cap2, "udp"), want2,
+        {"filter_count_rows": launches["filter_count_rows"]})
+    os.environ["MSM_PALLAS_FILTER"] = "0"
+    try:
+        tab = Matcher(rules, device=dev)
+        launches["table_count_totals"] = len(tab.kernels.classes) * tiles2
+        route_walls["3,072 rules, table kernels"] = drive(
+            "3,072 rules streamed, table kernels", lambda: pp.count_pcap_streamed(tab, cap2, "udp"),
+            big_counts, {"table_count_totals": launches["table_count_totals"]})
+        tab_nul = Matcher(rules + [b"\x00\x00"], device=dev)
+        launches["table_count_rows"] = len(tab_nul.kernels.classes) * chunks
+        route_walls["3,072 rules + NUL, table kernels"] = drive(
+            "NUL rule set streamed, table kernels", lambda: pp.count_pcap_streamed(
+                tab_nul, cap2, "udp"), want2, {"table_count_rows": launches["table_count_rows"]})
+    finally:
+        del os.environ["MSM_PALLAS_FILTER"]
+    print(f"NUL sets streamed = their one-shot counts: stand-in + NUL {chunks} rows launches, "
+          f"3,072 rules + NUL {launches['filter_count_rows']} ({n_cls_nul} classes x {chunks} "
+          f"chunks); walls " + ", ".join(f"{k} {v:.4f} s" for k, v in route_walls.items())
+          + f" [{card}]")
+
+    # The commands, held against serial's counts (phase 4 checked serial).
+    want_rep = nonzero(patterns, counts)
+    for name in ("data", "task"):
+        torch.cuda.synchronize()
+        reset_launches(cw, ct)
+        rep, rc, s = report_of(cli, [name, cap, pat_file, "4", "udp"])
+        check(rc == 0 and rep == want_rep, f"{name} 4 udp differs from serial")
+        launched = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
+        if name == "task":
+            check(launched == {"window_count_totals": batches}, f"task launches {launched}")
+        print(f"{name} <cap> <strings> 4 udp: {s:.4f} s wall, launches {launched} [{card}]")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["match", "--pcap", str(cap), "--patterns", str(pat_file), "--stream",
+                       "--host-workers", str(workers), "--json"])
+    blob = json.loads(out.getvalue().splitlines()[-1])
+    check(rc == 0 and blob["counts"] == counts.tolist()
+          and blob["execution"]["engine_resolved"] == "pallas", "match --stream --json")
+    print(f"match --stream --host-workers {workers} --json: serial's counts, phases "
+          f"{blob['phases']} [{card}]")
+    print(f"phase 9: {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1671,6 +1917,10 @@ def run(dev) -> int:
     # -- 8. the matrix-unit measurement path ----------------------------------
     mxu_record = mxu_phase(dev, card, mx, matcher, prep, counts, head_p, head_l)
 
+    # -- 9. the streamed packet path ------------------------------------------
+    stream_launches = stream_phase(dev, card, cw, ct, matcher, patterns, pat_file, cap, counts,
+                                   big, rules, cap2, big_counts)
+
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
     ref = "multithreading_string_matching_tpu/ops/pallas_window.py"
     tsrc = "multithreading_string_matching_tpu_torch/csrc/table_count.cu"
@@ -1720,6 +1970,10 @@ def run(dev) -> int:
         *shard_records,
         mxu_record,
     ]}
+    # Launches of one streamed pass (phase 9) beside the records' own.
+    for rec in record["kernels"]:
+        if rec["name"] in stream_launches:
+            rec["stream_launches"] = stream_launches[rec["name"]]
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

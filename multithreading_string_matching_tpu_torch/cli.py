@@ -1,11 +1,15 @@
-"""Command line of the torch package: the one-shot commands.
+"""Command line of the torch package: the reference's programs as commands.
 
 Counterpart of ``multithreading_string_matching_tpu/cli.py``::
 
   python -m multithreading_string_matching_tpu_torch serial <file.pcap> <strings.txt> [udp/tcp]
-  python -m multithreading_string_matching_tpu_torch match  --pcap F --patterns F
+  python -m multithreading_string_matching_tpu_torch data   <file.pcap> <strings.txt> [threads] [udp/tcp]
+  python -m multithreading_string_matching_tpu_torch task   <file.pcap> <strings.txt> [threads] [udp/tcp]
+  python -m multithreading_string_matching_tpu_torch synth  <out.pcap> <num_packets> [payload_len] [strings.txt]
+  python -m multithreading_string_matching_tpu_torch match  --pcap F [--pcap F ...] --patterns F
         [--mode udp|tcp] [--engine auto|pallas|window|ac|kmp] [--nocase]
-        [--vlan] [--ipv6] [--per-packet] [--flows [--reorder] [--stream]]
+        [--vlan] [--ipv6] [--per-packet] [--staging auto|packed|bucketed]
+        [--stream [--host-workers N]] [--flows [--reorder] [--stream]]
         [--sharded [--shard-axis auto|packets|patterns|both]] [--json]
 
 ``MSM_DEVICE=cpu|cuda`` (default ``cuda``) picks the device, as
@@ -13,16 +17,27 @@ Counterpart of ``multithreading_string_matching_tpu/cli.py``::
 kernels and fails without a card, ``cpu`` runs their plain versions.
 Output is byte-compatible with the reference's report (utils/report.py).
 
-``match --flows`` reassembles TCP/UDP flows and counts over the streams;
-``--flows --stream`` is the bounded-memory flow monitor
+The thread count of ``data`` and ``task`` sizes the HOST thread pool
+(parallel/host.py), the analogue of the reference's ``num_threads``:
+``data`` extracts contiguous packet ranges on a pool, ``task`` threads the
+streamed read/extract stages of the 100-packet task pipeline
+(parallel/pipeline.count_pcap_pipelined).  Counts are identical at any
+thread count.
+
+``match --stream`` is the bounded-memory serving path
+(parallel/pipeline.count_pcap_streamed): the capture streams in, payloads
+pack into fixed tiles staged through pinned buffers, with ``--host-workers
+N`` threading ingest and decode; repeated ``--pcap`` files stream as one
+corpus.  ``match --flows`` reassembles TCP/UDP flows and counts over the
+streams; ``--flows --stream`` is the bounded-memory flow monitor
 (parallel/flow_stream.py), fed ``MSM_FLOW_BATCH`` packets (default 8192) at
 a time, reloading the rules file on SIGHUP.  ``--sharded`` spreads the scan
 over a mesh of every device of ``MSM_DEVICE``'s type (each card; one shard
 on the CPU): the packet axis, the pattern axis (each shard holds 1/N of the
 rule set) or both; ``auto`` takes the pattern axis for table-route sets on
-more than one device, the packet axis otherwise.  The other commands (data,
-task, live, mesh, synth) and match's packet streaming, offset, dump and
-distributed options are not yet ported (ROADMAP).
+more than one device, the packet axis otherwise.  The ``live`` and
+``mesh`` commands and match's offset, dump and distributed options are not
+yet ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -84,6 +99,78 @@ def cmd_serial(argv: List[str]) -> int:
     return 0
 
 
+def _take_threads(argv: List[str]):
+    """Parse the reference's positional thread-count argument.
+
+    Returns ``(host_workers, rest)``: the count sizes the host thread pool
+    (parallel/host.py, the analogue of ``num_threads(thread_count)``,
+    openmp_data.c:128).  A count of 0/1 or an absent argument maps to
+    host_workers=0 (sequential: one thread is no parallelism, and a
+    1-worker pool only adds handoff overhead)."""
+    if argv and argv[0].isdigit():
+        n = int(argv[0])
+        return (n if n > 1 else 0), argv[1:]
+    return 0, argv
+
+
+def cmd_data(argv: List[str]) -> int:
+    """openmp_data.c analogue: the whole file in RAM, packet ranges
+    extracted on host threads, each counted by the one-shot path.
+
+    Timing excludes the pcap read (openmp_data.c:126 starts after ingest)."""
+    if len(argv) < 2:
+        print("USAGE: data <file.pcap> <strings.txt> [threads] [tcp/udp]")
+        return 1
+    from multithreading_string_matching_tpu_torch.io.decode import extract_payloads
+    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap, slice_pcap
+
+    threads, rest = _take_threads(argv[2:])
+    mode = _mode_arg(rest)
+    matcher = _build(argv[1])
+    pcap = read_pcap(argv[0])
+    start = time.perf_counter()
+    if threads and pcap.num_packets:
+        # Contiguous packet ranges extract on host worker threads (the
+        # native decode releases the GIL); counts sum exactly: the host-side
+        # analogue of openmp_data.c's packet-parallel region (:128-146).
+        from multithreading_string_matching_tpu_torch.parallel.host import map_prefetch
+
+        per = -(-pcap.num_packets // threads)
+        slices = [
+            slice_pcap(pcap, s, min(s + per, pcap.num_packets), copy=False)
+            for s in range(0, pcap.num_packets, per)
+        ]
+        batches = list(map_prefetch(
+            lambda p: extract_payloads(p, mode, keep_invalid=True, pad_n_to=128, pad_len_to=8),
+            iter(slices), workers=threads,
+        ))
+        counts = np.sum([matcher.count_batch(b) for b in batches], axis=0).astype(np.int64)
+    else:
+        batch = extract_payloads(pcap, mode, keep_invalid=True, pad_n_to=128, pad_len_to=8)
+        counts = matcher.count_batch(batch)
+    elapsed = time.perf_counter() - start
+    _report(matcher, counts, elapsed)
+    return 0
+
+
+def cmd_task(argv: List[str]) -> int:
+    """openmp_task.c analogue: the batched producer/consumer pipeline
+    (batch = 100 packets)."""
+    if len(argv) < 2:
+        print("USAGE: task <file.pcap> <strings.txt> [threads] [tcp/udp]")
+        return 1
+    from multithreading_string_matching_tpu_torch.parallel.pipeline import count_pcap_pipelined
+
+    threads, rest = _take_threads(argv[2:])
+    mode = _mode_arg(rest)
+    matcher = _build(argv[1])
+    start = time.perf_counter()
+    counts = count_pcap_pipelined(matcher, argv[0], mode, host_workers=threads)
+    elapsed = time.perf_counter() - start
+    _report(matcher, counts, elapsed)
+    return 0
+
+
 def _execution_blob(matcher, sharded: bool = False, attribution: bool = False,
                     actual: Optional[str] = None, shard_axis: Optional[str] = None) -> dict:
     """``matcher.explain()``, corrected for the remaps of the path that ran,
@@ -110,9 +197,12 @@ def _execution_blob(matcher, sharded: bool = False, attribution: bool = False,
 
 
 def cmd_match(argv: List[str]) -> int:
-    """One-shot scan with explicit flags, or the flow monitor."""
+    """One-shot scan with explicit flags, the streamed scan, or the flow
+    monitor."""
     p = argparse.ArgumentParser(prog="match")
-    p.add_argument("--pcap", required=True, help="capture file ('-' reads stdin)")
+    p.add_argument("--pcap", action="append", required=True,
+                   help="capture file ('-' reads stdin); repeatable with --stream: "
+                        "the captures stream as one corpus")
     p.add_argument("--patterns", required=True)
     p.add_argument("--mode", choices=["udp", "tcp"], default="udp")
     p.add_argument("--engine", choices=["auto", "pallas", "window", "ac", "kmp"],
@@ -128,7 +218,10 @@ def cmd_match(argv: List[str]) -> int:
                    help="with --flows: order each TCP flow's segments by sequence number "
                         "and drop retransmitted or overlapping bytes (first bytes win)")
     p.add_argument("--stream", action="store_true",
-                   help="with --flows: the bounded-memory flow monitor")
+                   help="bounded-memory streaming scan (fixed packed tiles; any-size "
+                        "captures); with --flows: the bounded-memory flow monitor")
+    p.add_argument("--staging", choices=["auto", "packed", "bucketed"], default="auto",
+                   help="device staging policy for the pallas engine")
     p.add_argument("--sharded", action="store_true",
                    help="use every device of MSM_DEVICE's type through a mesh")
     p.add_argument("--shard-axis", choices=["auto", "packets", "patterns", "both"],
@@ -139,26 +232,17 @@ def cmd_match(argv: List[str]) -> int:
     for flag in ("--offsets", "--distributed"):
         p.add_argument(flag, action="store_true", help="not yet ported")
     p.add_argument("--dump-matches", metavar="OUT.pcap", help="not yet ported")
-    p.add_argument("--host-workers", type=int, default=0, metavar="N", help="not yet ported")
+    p.add_argument("--host-workers", type=int, default=0, metavar="N",
+                   help="with --stream: thread the host stages (prefetched ingest + N "
+                        "parallel extract workers); identical counts, faster wall clock "
+                        "on multi-core hosts")
     p.add_argument("--json", action="store_true")
     a = p.parse_args(argv)
+    if a.host_workers < 0:
+        # The JAX package's MatchConfig.validate, word for word.
+        raise ValueError("host_workers must be >= 0")
     if a.per_packet and not a.json:
         raise SystemExit("--per-packet produces an [N, P] matrix: use --json")
-    unported = [f for f, on in (("--offsets", a.offsets), ("--dump-matches", a.dump_matches),
-                                ("--host-workers", a.host_workers),
-                                ("--distributed", a.distributed),
-                                ("--stream without --flows", a.stream and not a.flows)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"match {', '.join(unported)} is not yet ported to the torch package (ROADMAP)"
-        )
-    if a.flows and a.per_packet:
-        raise SystemExit("--flows does not compose with --per-packet (per-flow rows "
-                         "ARE the attribution unit; use --offsets for positions)")
-    if a.reorder and not a.flows:
-        raise SystemExit("--reorder requires --flows")
-    if a.reorder and a.mode != "tcp":
-        raise SystemExit("--reorder applies to TCP flows only")
 
     from multithreading_string_matching_tpu_torch.utils.timing import PhaseTimer
 
@@ -175,16 +259,54 @@ def cmd_match(argv: List[str]) -> int:
             shard_axis = choose_shard_axis(matcher, len(default_devices(matcher.device.type)))
     elif shard_axis != "auto":
         raise SystemExit("--shard-axis requires --sharded")
+    # The JAX CLI's guards, in its order.
+    if a.distributed and not a.stream:
+        raise SystemExit("--distributed requires --stream (the one-shot "
+                         "multi-host path is the `mesh` subcommand)")
+    if a.host_workers and not a.stream:
+        raise SystemExit("--host-workers requires --stream (the one-shot "
+                         "path reads the capture in one pass)")
+    if a.flows and a.per_packet:
+        raise SystemExit("--flows does not compose with --per-packet (per-flow rows "
+                         "ARE the attribution unit; use --offsets for positions)")
+    if a.flows and a.dump_matches and a.stream:
+        raise SystemExit("--flows --dump-matches is one-shot only (the streamed flow "
+                         "monitor does not retain packets): drop --stream")
+    if a.flows and a.stream and a.distributed:
+        raise SystemExit("--flows --stream does not compose with --distributed "
+                         "(per-flow carried state is single-host; use --sharded for "
+                         "multi-device lanes)")
+    if a.reorder and not a.flows:
+        raise SystemExit("--reorder requires --flows")
+    if a.reorder and a.mode != "tcp":
+        raise SystemExit("--reorder applies to TCP flows only")
+    if a.stream and not a.flows:
+        if a.per_packet:
+            raise SystemExit("--stream is incompatible with --per-packet")
+        if a.distributed and (a.dump_matches or a.offsets or a.sharded):
+            raise SystemExit("--distributed streaming is counts-only (per-host tiles, "
+                             "one end-of-run merge); drop --sharded/--offsets/"
+                             "--dump-matches")
+    unported = [f for f, on in (("--offsets", a.offsets), ("--dump-matches", a.dump_matches),
+                                ("--distributed", a.distributed),
+                                ("repeated --pcap without --stream",
+                                 len(a.pcap) > 1 and not a.stream)) if on]
+    if unported:
+        raise NotImplementedError(
+            f"match {', '.join(unported)} is not yet ported to the torch package (ROADMAP)"
+        )
     if a.flows and a.stream:
         return _match_flow_stream(a, matcher, timer)
     if a.flows:
         return _match_flows(a, matcher, timer, shard_axis)
+    if a.stream:
+        return _match_stream(a, matcher, timer, shard_axis)
 
     from multithreading_string_matching_tpu_torch.io.decode import extract_payloads
     from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
 
     with timer.phase("ingest"):
-        pcap = read_pcap(a.pcap)
+        pcap = read_pcap(a.pcap[0])
     with timer.phase("extract"):
         batch = extract_payloads(pcap, a.mode, pad_n_to=128, pad_len_to=8,
                                  vlan=a.vlan, ipv6=a.ipv6)
@@ -194,7 +316,7 @@ def cmd_match(argv: List[str]) -> int:
         elif a.sharded:
             counts = _sharded_counts(a, matcher, shard_axis, batch.payloads, batch.lengths)
         else:
-            counts = matcher.count_batch(batch, per_packet=a.per_packet)
+            counts = matcher.count_batch(batch, per_packet=a.per_packet, staging=a.staging)
     if a.json:
         blob = {
             "patterns": [pt.decode("latin-1") for pt in matcher.patterns],
@@ -278,7 +400,7 @@ def _match_flows(a, matcher, timer, shard_axis: str) -> int:
     from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
 
     with timer.phase("ingest"):
-        pcap = read_pcap(a.pcap)
+        pcap = read_pcap(a.pcap[0])
     with timer.phase("extract"):
         fb = extract_flows(pcap, a.mode, reorder=a.reorder, ipv6=a.ipv6, vlan=a.vlan)
     with timer.phase("scan"):
@@ -318,13 +440,27 @@ def _flow_stream_engine(a, matcher) -> str:
     return "ac"
 
 
+def _flow_chunks(paths, flow_batch: int, host_workers: int):
+    """``iter_pcap`` chunks of every path in turn; with ``host_workers`` the
+    next chunk parses on a background thread (in order: reassembly needs
+    capture order)."""
+    from multithreading_string_matching_tpu_torch.io.pcap import iter_pcap
+
+    for path in paths:
+        chunks = iter_pcap(path, batch_packets=flow_batch)
+        if host_workers:
+            from multithreading_string_matching_tpu_torch.parallel.host import prefetch_iter
+
+            chunks = prefetch_iter(chunks, depth=max(2, host_workers))
+        yield from chunks
+
+
 def _match_flow_stream(a, matcher, timer) -> int:
     """``--flows --stream``: iter_pcap batches into the flow monitor, with
     the rules file reloaded on SIGHUP (``--pcap -`` behind a tcpdump pipe
     is the daemon shape)."""
     import signal
 
-    from multithreading_string_matching_tpu_torch.io.pcap import iter_pcap
     from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
     from multithreading_string_matching_tpu_torch.utils.report import format_report
 
@@ -346,7 +482,7 @@ def _match_flow_stream(a, matcher, timer) -> int:
     reloads = 0
     try:
         with timer.phase("scan"):
-            for chunk in iter_pcap(a.pcap, batch_packets=flow_batch):
+            for chunk in _flow_chunks(a.pcap, flow_batch, a.host_workers):
                 if reload_flag["hup"]:
                     reload_flag["hup"] = False
                     try:
@@ -395,9 +531,66 @@ def _match_flow_stream(a, matcher, timer) -> int:
     return 0
 
 
+def _match_stream(a, matcher, timer, shard_axis: str) -> int:
+    """``--stream``: the bounded-memory packed-tile scan over every
+    ``--pcap`` in turn (parallel/pipeline.count_pcap_streamed)."""
+    from multithreading_string_matching_tpu_torch.parallel.pipeline import count_pcap_streamed
+
+    stream_stats: dict = {}
+    with timer.phase("scan"):
+        counts = count_pcap_streamed(
+            matcher, a.pcap, a.mode, vlan=a.vlan, ipv6=a.ipv6, engine=a.engine,
+            stats=stream_stats, sharded=a.sharded,
+            shard_axis=shard_axis if a.sharded else "packets",
+            host_workers=a.host_workers,
+        )
+    # The pipeline reports the engine it ACTUALLY resolved.
+    actual_engine = stream_stats.pop("engine_resolved", None)
+    if a.json:
+        blob = {
+            "patterns": [pt.decode("latin-1") for pt in matcher.patterns],
+            "counts": np.asarray(counts).tolist(),
+            **stream_stats,  # host_workers / packets / valid_payloads / payload_bytes
+            "phases": timer.phases,
+            "execution": _execution_blob(matcher, a.sharded, actual=actual_engine),
+        }
+        if a.sharded:
+            blob["execution"]["shard_axis"] = shard_axis
+        _print_json(blob)
+    else:
+        _report(matcher, counts, timer.total)
+    return 0
+
+
+def cmd_synth(argv: List[str]) -> int:
+    """Generate a synthetic UDP capture (mega_udp.pcap stand-in), the same
+    bytes as the JAX package's ``synth`` for the same arguments.
+
+    USAGE: synth <out.pcap> <num_packets> [payload_len] [strings.txt]
+    """
+    if len(argv) < 2:
+        print("USAGE: synth <out.pcap> <num_packets> [payload_len] [strings.txt]")
+        return 1
+    from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
+    from multithreading_string_matching_tpu_torch.io.synth import synth_udp_pcap
+
+    payload_len = int(argv[2]) if len(argv) > 2 else 1024
+    patterns = load_patterns(argv[3]) if len(argv) > 3 else None
+    total = synth_udp_pcap(
+        argv[0], int(argv[1]), payload_len=payload_len,
+        payload_len_jitter=payload_len // 4, patterns=patterns,
+        plant_rate=0.05, invalid_rate=0.02,
+    )
+    print(f"wrote {argv[0]}: {argv[1]} packets, {total} payload bytes")
+    return 0
+
+
 COMMANDS = {
     "serial": cmd_serial,
+    "data": cmd_data,
+    "task": cmd_task,
     "match": cmd_match,
+    "synth": cmd_synth,
 }
 
 

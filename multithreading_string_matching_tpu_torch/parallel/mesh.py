@@ -217,6 +217,31 @@ def count_matches_sharded(
     return counts
 
 
+def count_tile_sharded(matcher, payload: torch.Tensor, fill: torch.Tensor, mesh: Mesh, *,
+                       engine: str = "pallas") -> torch.Tensor:
+    """int32[U] build-order totals of one staged tile (tensors on the mesh's
+    first device, rows a multiple of the mesh size) with its row blocks
+    counted on their shards and summed on the first device: the packed-tile
+    pipeline's step (the JAX package's ``_sharded_count_pallas`` /
+    ``_sharded_count_window``).  A shard on the tile's own device reads its
+    rows in place; others get a device-to-device copy.  Nothing waits for
+    the result."""
+    devs = list(mesh.devices.flat)
+    if payload.shape[0] % len(devs):
+        raise ValueError(f"{payload.shape[0]} tile rows do not divide over {len(devs)} shards")
+    rows = payload.shape[0] // len(devs)
+    parts = []
+    for d, dev in enumerate(devs):
+        p = payload[d * rows:(d + 1) * rows].to(dev, non_blocking=True)
+        l = fill[d * rows:(d + 1) * rows].to(dev, non_blocking=True)
+        if engine == "pallas":
+            parts.append(matcher.kernels.on_device(dev).count_tiles([(p, l)],
+                                                                   expand_duplicates=False))
+        else:
+            parts.append(window_count(*_staged_window(matcher, dev), p, l))
+    return _sum(parts, devs[0])
+
+
 def count_rows_sharded(
     matcher,
     payloads,

@@ -2,8 +2,8 @@
 rule set.
 
 Counterpart of ``multithreading_string_matching_tpu/parallel/
-pattern_shard.py`` (all of it but ``make_tile_counter``, which comes with
-the packed-tile pipeline, ROADMAP Queue 1 item 7).  The unique patterns are
+pattern_shard.py``; ``make_tile_counter`` serves the packed-tile pipeline
+(parallel/pipeline.py).  The unique patterns are
 cut into N contiguous build-order chunks; shard d gets chunk d as its own
 table block, on its own device, scans the same payload rows, and the merge
 is a concatenation of the shards' counts.  A 2-D ``("packets",
@@ -418,6 +418,49 @@ def count_rows_summary_pattern_sharded(
     pkt_ax = _axes(mesh)[1]
     return sliced_summary(once, payloads, lengths, mesh.shape[pkt_ax] if pkt_ax else 1,
                           len(matcher.window.unique_patterns))
+
+
+def make_tile_counter(matcher, mesh: Mesh, engine: Optional[str] = None):
+    """``(tile_fn, plan, engine)`` for the packed-tile pipeline
+    (parallel/pipeline.PackedTileCounter).  ``tile_fn(payloads, lengths)``
+    returns the int32[n_sh*S] shard-concatenated unique counts of one tile
+    on the mesh's first device, without waiting for them (each table block
+    summed over the packet blocks), and ``plan.gather`` maps the drained
+    vector back to build-order uniques.  The plan, shard kernels and tables
+    are staged once per mesh.  Given tensors on the first device (the
+    pipeline's staged tiles), ``tile_fn`` copies nothing from the host; the
+    rows must divide over the packet axis."""
+    pat_ax, pkt_ax = _axes(mesh)
+    engine = _resolve_engine(matcher, engine)
+    filtered = engine == "pallas" and matcher._pallas_filter_selected()
+    plan = _plan_for(matcher, mesh.shape[pat_ax], filtered)
+    grid = _grid(mesh, pat_ax, pkt_ax)
+    tables = _stage_tables(matcher, plan, mesh, grid)
+    kernels = ({dev: _shard_kernel_for(matcher, plan, dev) for _i, _j, dev in grid}
+               if engine == "pallas" else {})
+    n_pkt = mesh.shape[pkt_ax] if pkt_ax is not None else 1
+    first = mesh.devices.flat[0]
+
+    def tile_fn(payloads, lengths) -> torch.Tensor:
+        p = torch.as_tensor(payloads, dtype=torch.uint8, device=first)
+        l = torch.as_tensor(lengths, dtype=torch.int32, device=first)
+        if p.shape[0] % n_pkt:
+            raise ValueError(f"{p.shape[0]} tile rows do not divide over {n_pkt} packet shards")
+        block = p.shape[0] // n_pkt
+        rows = {}
+        for i, _j, dev in grid:
+            if (dev, i) not in rows:
+                rs = slice(i * block, (i + 1) * block)
+                rows[(dev, i)] = (p[rs].to(dev, non_blocking=True),
+                                  l[rs].to(dev, non_blocking=True))
+        call = _Call(plan, engine, grid, tables, rows, block, kernels)
+        parts: dict = {}
+        for i, j, dev in call.grid:
+            parts.setdefault(j, []).append(call.local(i, j, dev, per_row=False).to(first))
+        return torch.cat([torch.stack(parts[j]).sum(dim=0, dtype=torch.int32)
+                          for j in range(plan.n_shards)])
+
+    return tile_fn, plan, engine
 
 
 def resolve_shard_mesh(shard_axis: str, n_dev: Optional[int] = None, *,

@@ -1,7 +1,8 @@
 """The torch package's ``match --flows`` and ``match --flows --stream``
 against the JAX package's CLI: counts, flow and packet totals, stream bytes,
 the text report and a SIGHUP rules reload, on the CPU (``MSM_DEVICE=cpu``);
-the options not yet ported exit 1.
+the options not yet ported exit 1 (and the packet `--stream`, now ported,
+counts what the one-shot match counts).
 """
 
 import json
@@ -122,21 +123,39 @@ def test_flows_text_report_equals_jax(capture, capsys, monkeypatch, flags):
     assert drop(got) == drop(want) and len(drop(got)) > 5
 
 
-@pytest.mark.parametrize("flags", [
-    ["--flows", "--offsets"],
-    ["--flows", "--dump-matches", "x.pcap"],
-    ["--flows", "--sharded", "--offsets"],
-    ["--flows", "--stream", "--host-workers", "2"],
-    ["--flows", "--stream", "--distributed"],
-    ["--stream"],
-    ["--flows", "--stream"],  # the CPU default picks the AC flow engine
-    ["--flows", "--stream", "--engine", "ac"],
-], ids=lambda f: "_".join(x.strip("-") for x in f))
-def test_unported_flow_options_exit_1(capture, capsys, monkeypatch, flags):
+UNPORTED_CASES = [
+    (["--flows", "--offsets"], "unported"),
+    (["--flows", "--dump-matches", "x.pcap"], "unported"),
+    (["--flows", "--sharded", "--offsets"], "unported"),
+    (["--flows", "--stream", "--host-workers", "2"], "unported"),
+    # JAX refuses this combination before anything runs; the port now does too.
+    (["--flows", "--stream", "--distributed"], "refused like JAX"),
+    # The packet stream is ported: it counts what the one-shot match counts.
+    (["--stream"], "ported"),
+    (["--flows", "--stream"], "unported"),  # the CPU default picks the AC flow engine
+    (["--flows", "--stream", "--engine", "ac"], "unported"),
+]
+
+
+@pytest.mark.parametrize("flags, outcome", UNPORTED_CASES,
+                         ids=["_".join(x.strip("-") for x in f) for f, _ in UNPORTED_CASES])
+def test_unported_flow_options_exit_1(capture, capsys, monkeypatch, flags, outcome):
     monkeypatch.setenv("MSM_DEVICE", "cpu")
     argv = ["match", "--pcap", str(capture), "--patterns", str(STANDIN), "--mode", "tcp", *flags]
-    assert pt_main(argv) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    if outcome == "refused like JAX":
+        with pytest.raises(SystemExit) as got:
+            pt_main(argv)
+        with pytest.raises(SystemExit) as want:
+            jax_main(argv)
+        assert str(got.value) == str(want.value)
+        assert str(got.value).startswith("--flows --stream does not compose with --distributed")
+    elif outcome == "ported":
+        streamed = _json(pt_main, argv + ["--json"], capsys)["counts"]
+        one_shot = _json(pt_main, argv[:-1] + ["--json"], capsys)["counts"]
+        assert streamed == one_shot and sum(streamed) > 0
+    else:
+        assert pt_main(argv) == 1
+        assert "not yet ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags", [["--flows", "--per-packet", "--json"], ["--reorder"],
