@@ -77,15 +77,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``match`` (median of 3), and the device busy share of one
    pattern-sharded count (torch.profiler).
 8. The matrix-unit measurement path (``tools/mxu_match.py``, the port of
-   ``bench/mxu_match.py``): ``mxu_count`` (int8 tensor cores) equals its
-   plain version on ragged widths and row counts, U = 1, 127, 128, 129 and
-   3,072, 1-byte patterns and m_max = 99, a packed tile, a zero-row tile and
-   reps = 3.  With the launch counter reset just before, the tool's three
+   ``bench/mxu_match.py``): ``mxu_count`` (int8 ``wgmma``) equals its
+   plain version, over all padded slots and over the live ones, at reps 1
+   and 3, on ragged widths and row counts, U = 1, 88, 96, 127, 128, 129,
+   256, 257 and 3,072 (``rs`` and ``pt`` at C = 64), 60 and 90 at four
+   k-steps, 1-byte patterns and m_max = 99, widths 1, 63 and 65, 3,000 rows of 1,100 (more row segments
+   than the persistent grid has warpgroups), patterns planted across every
+   64-position boundary of 4,133-byte rows, a packed tile and a zero-row
+   tile; it prints the kernel's tensor-core opcodes (``cuobjdump -sass``:
+   warpgroup ``*GMMA`` against ``mma.sync``).  With the launch counter
+   reset just before, the tool's three
    pattern sets over its corpus and the stand-in set over phase 3's resident
    tiles must launch ``mxu_count`` once per tile and call, and give the
    table kernel's totals, phase 3's counts and, on the first rows, a
    pure-Python count.  Times: the kernel over phase 3's tiles (median of
-   20) against the plain version (1 run), the tool's rows (mxu and table
+   20, its device time queued alone, and its share of the bound,
+   ``bound_share``) against the plain version (1 run), the tool's rows (mxu and table
    rates per set), ``torch._int_mm`` on the score product alone for the
    first 1,024 rows of one tile beside the kernel on the same rows, and
    the mxu, table and window kernels over phase 3's tiles alternated over
@@ -136,6 +143,7 @@ import io
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -1112,6 +1120,53 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
                            kern.num_unique, label="window_count_halo")}
 
 
+# Patterns of 8, 20 and 33 bytes (C = 264: three groups of k-steps).
+MXU_BOUNDARY_PATS = [b"abcdefgh", b"xy" * 10, b"q" + b"r" * 31 + b"q"]
+STANDIN_FILE = (pathlib.Path(__file__).resolve().parent
+                / "multithreading_string_matching_tpu_torch/data/strings_standin.txt")
+
+
+def boundary_rows(pats, seg: int = 64, L: int = 2 * 2048 + 37):
+    """Rows of ``z`` with one pattern each, at every offset that touches or
+    straddles a ``seg``-position boundary (the mxu kernel's 64-position
+    M-tiles, where its units and their alternating ring slots may start,
+    and its 2,048-position unit limit inside a row); rows are full width."""
+    rows = []
+    for pat in pats:
+        for b in range(seg, L, seg):
+            for o in range(max(0, b - len(pat) - 1), min(b + 2, L - len(pat) + 1)):
+                row = np.full(L, ord("z"), np.uint8)
+                row[o : o + len(pat)] = np.frombuffer(pat, np.uint8)
+                rows.append(row)
+    return np.stack(rows), np.full(len(rows), L, np.int32)
+
+
+def sass_mix(lib_path: str, key: str = "mxu") -> str:
+    """Tensor-core opcodes of the functions named ``*key*`` in a built
+    library, from ``cuobjdump -sass``: warpgroup MMA (``*GMMA``) against
+    ``mma.sync`` (``IMMA``/``HMMA``); "not available" without cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "not available"
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        return "not available"
+    mix, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if key in m.group(1) else None
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*MMA)\b", line) if fn else None
+        if m:
+            kind = "GMMA" if m.group(1).endswith("GMMA") else "mma.sync"
+            mix.setdefault(fn, {}).setdefault(f"{kind}:{m.group(1)}", 0)
+            mix[fn][f"{kind}:{m.group(1)}"] += 1
+    return json.dumps(mix) if mix else "no tensor-core opcodes found"
+
+
 def mxu_cases(rng, dev):
     """(name, patterns, payload uint8[n, L] on ``dev``) cases for the
     tensor-core kernel; rows hold planted patterns and are zero past random
@@ -1119,6 +1174,7 @@ def mxu_cases(rng, dev):
     import torch
 
     from multithreading_string_matching_tpu_torch.api import Matcher
+    from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
 
     def tile(pats, n, L, alphabet):
         letters = np.frombuffer(alphabet, np.uint8)
@@ -1132,9 +1188,11 @@ def mxu_cases(rng, dev):
         x[np.arange(L)[None, :] >= ln[:, None]] = 0
         return x, ln.astype(np.int32)
 
-    x_ = [b"x%03d" % i for i in range(129)]
+    x_ = [b"x%03d" % i for i in range(257)]
     long_ = [b"a", b"ab" * 49 + b"a", b"b" * 99, b"ba", b"b"]
     rs = [b"rs%06d" % i for i in range(RULES)]
+    pt = [b"pt%06d" % i for i in range(RULES)]
+    std = list(dict.fromkeys(load_patterns(STANDIN_FILE)))
     cases = [
         ("width-1000-rows-37", [b"GET /", b"a", b"Host: "], *tile([b"GET /", b"a", b"Host: "],
                                                                   37, 1000, ALNUM + b" /:")),
@@ -1142,10 +1200,23 @@ def mxu_cases(rng, dev):
         ("u1-width-300", [b"abc"], *tile([b"abc"], 50, 300, b"abc")),
         ("u127", x_[:127], *tile(x_[:127], 41, 260, b"x0123")),
         ("u128", x_[:128], *tile(x_[:128], 41, 260, b"x0123")),
-        ("u129", x_, *tile(x_, 41, 260, b"x0123")),
+        ("u129", x_[:129], *tile(x_[:129], 41, 260, b"x0123")),
         ("u3072", rs, *tile(rs, 97, 517, b"rs0123")),
         ("one-byte-and-m-max-99", long_, *tile(long_, 23, 777, b"ab")),
         ("zero-rows", [b"ab"], np.zeros((0, 64), np.uint8), np.zeros(0, np.int32)),
+        # the wgmma tiling's edges: N-tile widths, pt x 3,072 at C = 64,
+        # rows shorter than, equal to and past one 64-position M-tile, more
+        # row segments than the persistent grid has blocks, and planted
+        # patterns straddling every 64-position boundary (where units start)
+        *[(f"u{u}", x_[:u], *tile(x_[:u], 41, 260, b"x0123")) for u in (88, 96, 256, 257)],
+        ("pt3072-c64", pt, *tile(pt, 97, 517, b"pt0123")),
+        *[(f"width-{L}", [b"ab", b"bab", b"a" * 20], *tile([b"ab", b"bab", b"a" * 20], 300, L, b"ab"))
+          for L in (1, 63, 65)],
+        ("segments-past-grid", std, *tile(std, 3000, 1100, ALNUM + b" /:")),
+        *[(name, pats, *tile(pats, 200, 700, pats[0][:1] + b"0123456789"))
+          for name, pats in (("u90-k4", [b"k%014d" % i for i in range(90)]),
+                             ("u60-k4", [b"q%015d" % i for i in range(60)]))],
+        ("segment-boundaries", MXU_BOUNDARY_PATS, *boundary_rows(MXU_BOUNDARY_PATS)),
     ]
     pk, pl = tile([b"abc", b"cab", b"b"], 300, 90, b"abc")
     prep = Matcher([b"abc", b"cab", b"b"], device="cpu").prepare(pk, pl, packed=True,
@@ -1180,10 +1251,15 @@ def mxu_phase(dev, card: str, mx, matcher, prep, std_counts, head_p, head_l) -> 
         P, tgt, m_max = mx.bit_tables(pats)
         P, tgt = torch.from_numpy(P).to(dev), torch.from_numpy(tgt).to(dev)
         want = mx.mxu_count_plain(P, tgt, m_max, x)
-        compare(mx.mxu_count(x, P, tgt), want, name)
-        compare(mx.mxu_count(x, P, tgt, reps=3), 3 * want, f"{name}, reps=3")
+        for reps in (1, 3):
+            compare(mx.mxu_count(x, P, tgt, reps=reps), reps * want, f"{name}, reps={reps}")
+            compare(mx.mxu_count(x, P, tgt, reps=reps, live=len(pats)), reps * want,
+                    f"{name}, reps={reps}, live={len(pats)}")
+        width = mx.tile_shape(len(pats), -(-P.shape[1] // mx.K_STEP) * mx.K_STEP)[0]
         print(f"mxu kernel check {name}: U={len(pats)} m_max={m_max} n={x.shape[0]} "
-              f"L={x.shape[1]} totals={int(want.sum())}: equal (also reps=3)")
+              f"L={x.shape[1]} wgmma N={width} totals={int(want.sum())}: equal (reps 1 and 3, "
+              "all slots and live)")
+    print(f"mxu_count instruction mix (cuobjdump -sass): {sass_mix(mx.BUILD_INFO['path'])}")
 
     # -- the measurement path, launches counted --------------------------------
     uniq = list(matcher.window.unique_patterns)
@@ -1221,6 +1297,7 @@ def mxu_phase(dev, card: str, mx, matcher, prep, std_counts, head_p, head_l) -> 
     # -- times ------------------------------------------------------------------
     nbytes = prep.total_payload_bytes
     ms = cuda_ms(lambda: mxm.count_tiles(prep.tiles), SCAN_RUNS)
+    dev_ms, clean = queued_ms(lambda: mxm.count_tiles(prep.tiles))
     P, tgt = mxm._P, mxm._tgt
     plain_tiles = []
 
@@ -1230,9 +1307,13 @@ def mxu_phase(dev, card: str, mx, matcher, prep, std_counts, head_p, head_l) -> 
     _, plain_ms = timed_once(plain_all)
     for i, ((p, _), want) in enumerate(zip(prep.tiles, plain_tiles)):
         compare(mx.mxu_count(p, P, tgt), want, f"phase 3 tile {i}")
-    print(f"mxu kernel, stand-in set over phase 3's resident tiles: {ms:.4f} ms = "
-          f"{nbytes / ms * 1e3:.6e} payload B/s (median of {SCAN_RUNS}); plain {plain_ms:.4f} ms "
-          f"(1 run), equal on every tile [{card}]")
+    width, wgs, smem = mx.tile_shape(mxm.num_unique, P.shape[1])
+    print(f"mxu kernel launch shape, stand-in set: wgmma N={width}, {wgs} warpgroups a block, "
+          f"{smem} bytes of shared memory a block")
+    print(f"mxu kernel, stand-in set over phase 3's resident tiles (wgmma N={width}): {ms:.4f} ms = "
+          f"{nbytes / ms * 1e3:.6e} payload B/s (median of {SCAN_RUNS}); device {fmt_ms(dev_ms)} "
+          f"({'queued alone' if clean else 'upper bound: the host fell behind'}); plain "
+          f"{plain_ms:.4f} ms (1 run), equal on every tile [{card}]")
     x = prep.tiles[0][0][:1024].contiguous()
     planes = mx._planes(x, P.shape[1] // 8).to(torch.int8).reshape(-1, P.shape[1])
     lib_counts = (torch._int_mm(planes, P.t()) == tgt).sum(dim=0, dtype=torch.int32)
@@ -1259,13 +1340,17 @@ def mxu_phase(dev, card: str, mx, matcher, prep, std_counts, head_p, head_l) -> 
               f"({', '.join(f'{t:.4f}' for t in times)}; each a median of {SCAN_RUNS}) [{card}]")
     print(f"phase 8: {time.perf_counter() - t_phase:.3f} s")
     ops = mxu_match.mxu_ops(nbytes, mxm.num_unique, mxm.m_max)
+    rec_bound = bound(nbytes + 4 * mxm.num_unique, ops, mxu_match.INT8_TENSOR_OPS_PER_S)
+    print(f"mxu kernel: {rec_bound['bound_ms']:.4f} ms bound / {ms:.4f} ms = "
+          f"{rec_bound['bound_ms'] / ms:.4f} of its bound [{card}]")
     return {"name": "mxu_count", "route": "cuda",
             "source": "multithreading_string_matching_tpu_torch/csrc/mxu_count.cu",
             "replaces": "bench/mxu_match.py:125", "launches": launches["mxu_count"],
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms if clean else None,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_covers": "torch._int_mm score product only, first 1,024 rows of tile 0",
-            "ms_library_rows": rows_ms,
-            **bound(nbytes + 4 * mxm.num_unique, ops, mxu_match.INT8_TENSOR_OPS_PER_S)}
+            "ms_library_rows": rows_ms, "wgmma_n": width, **rec_bound,
+            "bound_share": rec_bound["bound_ms"] / ms}
 
 
 def report_of(cli, argv):
@@ -1539,9 +1624,19 @@ def run(dev) -> int:
     print(f"build: {time.perf_counter() - t0:.3f} s wall for the three libraries")
     for m in (cw, ct, mx):
         print(f"build: nvcc {m.BUILD_INFO['seconds']:.3f} s -> {m.BUILD_INFO['path']}")
+        functions, spilling, fn = 0, [], None
         for line in str(m.BUILD_INFO["log"]).splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "Compiling entry" in line or "Performance Loss" in line:
                 print(f"ptxas: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            fn = entry[1] if entry else fn
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if found:
+                functions += 1
+                if int(found[1]) or int(found[2]):
+                    spilling.append(f"{fn} ({found[1]} B stored, {found[2]} B loaded)")
+        print(f"ptxas spills, {pathlib.Path(m.BUILD_INFO['path']).name}, {functions} functions: "
+              f"{'; '.join(spilling) or 'none'}")
 
     # -- 2. kernels against the plain version -----------------------------
     rng = np.random.default_rng(SEED)

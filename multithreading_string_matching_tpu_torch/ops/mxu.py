@@ -13,7 +13,8 @@ kernels:
   ``score == 8 * len(u)``.
 
 :func:`mxu_count` launches the hand-written kernel of ``csrc/mxu_count.cu``
-(int8 ``mma.sync`` on the tensor cores) for tensors on a CUDA device, and
+(int8 warpgroup MMA, ``wgmma``, on the tensor cores) for tensors on a CUDA
+device, and
 the plain version :func:`mxu_count_plain` for tensors on the CPU; on a CUDA
 tensor it launches or raises, never falls back.  ``LAUNCHES`` counts kernel
 launches (``mxu_count_repeated`` for ``reps > 1``).
@@ -21,6 +22,11 @@ launches (``mxu_count_repeated`` for ``reps > 1``).
 Like the Pallas call, the counts cover each tile's staged width and read no
 row lengths: tiles must be zero past each row's length, and only NUL-free
 pattern sets count exactly (:class:`MxuMatcher` refuses the others).
+
+:func:`window_fragment` and :func:`pattern_smem_offset` write down the two
+index maps the kernel rests on (its A operand, the payload windows, in
+registers; its B operand, the patterns, in shared memory), so the CPU tests
+can rebuild :func:`_planes` and :func:`bit_tables`' ``P`` from them.
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from multithreading_string_matching_tpu_torch.ops.cuda_window import (
 )
 
 U_BLOCK = 128
-K_STEP = 32  # the kernel's depth per tensor-core instruction (mma m16n8k32)
+K_STEP = 32  # the kernel's depth per tensor-core instruction (wgmma m64nNk32)
+M_TILE = 64  # payload positions per wgmma (its M)
+CORE_ROWS, CORE_BYTES = 8, 16  # a core matrix of the shared-memory layout
 MAX_C = -(-8 * MAX_PATTERN_LEN // K_STEP) * K_STEP
 
 # The plain version's intermediates hold at most this many float32 values.
@@ -57,6 +65,11 @@ LIBRARY = KernelLibrary("msm_mxu_count", SOURCES, {
     # payload, P, tgt, out, n, L, U_pad, C, reps, device, stream
     "msm_mxu_count": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # payload, P, tgt, out, n, L, U_pad, C, reps, u_live, device, stream
+    "msm_mxu_count_live": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong]
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    # u_live, C, int[3] out: wgmma width N, warpgroups a block, shared bytes
+    "msm_mxu_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
 load_library = LIBRARY.load
 BUILD_INFO = LIBRARY.build_info
@@ -77,6 +90,50 @@ def bit_tables(patterns: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, int]:
         P[u, : bits.size] = bits.astype(np.int8) * 2 - 1
         tgt[u, 0] = 8 * len(p)
     return P, tgt, m_max
+
+
+def window_fragment(warp: int, lane: int, reg: int, step: int) -> Tuple[int, int]:
+    """``(byte, nibble)`` behind one A-fragment register of the kernel's
+    wgmma: register ``reg`` (0-3) of ``lane`` of ``warp`` (0-3 in the
+    warpgroup) at k-step ``step`` holds the four +-1 values of nibble
+    ``nibble`` (0 low, 1 high) of byte ``byte`` counted from the M-tile's
+    first position.
+
+    It follows from wgmma's A layout for 8-bit types (that of ``mma.sync``
+    m16n8k32 in each warp's 16 rows): register ``reg`` holds row
+    ``16 warp + g + 8 (reg & 1)`` and columns ``32 step + 16 (reg >> 1) +
+    4 t`` .. ``+ 3``, with ``g, t = lane // 4, lane % 4``; column ``c`` of
+    that row is bit ``c % 8`` of byte ``row + c // 8``.  So the word is
+    ``2 * byte + nibble`` of the kernel's expanded segment (two words a
+    byte)."""
+    g, t = lane >> 2, lane & 3
+    row = 16 * warp + g + 8 * (reg & 1)
+    return row + 4 * step + 2 * (reg >> 1) + (t >> 1), t & 1
+
+
+def pattern_smem_offset(n: int, c: int, width: int) -> int:
+    """Byte offset of pattern ``n`` (0 <= n < ``width``, the block's wgmma
+    N), column ``c`` of its ``P`` row, in the kernel's shared copy: the
+    canonical K-major layout without swizzle, core matrices of 8 patterns x
+    16 bytes, the ``width / 8`` core matrices of one 16-byte column block
+    side by side.  A k-step ``s`` reads from ``32 * s * width`` with the
+    descriptor's leading byte offset ``16 * width`` (the next 16 bytes of
+    K) and stride byte offset 128 (the next 8 patterns):
+    :func:`pattern_descriptor_offset`."""
+    kb, kc = divmod(c, CORE_BYTES)
+    nb, nr = divmod(n, CORE_ROWS)
+    return (kb * (width // CORE_ROWS) + nb) * CORE_ROWS * CORE_BYTES + nr * CORE_BYTES + kc
+
+
+def pattern_descriptor_offset(n: int, k: int, step: int, width: int) -> int:
+    """Where the tensor cores read B[k, n] of k-step ``step`` (0 <= k < 32)
+    through the kernel's descriptor: start ``32 * step * width``, then
+    ``(k // 16) * LBO + (n // 8) * SBO + (n % 8) * 16 + k % 16``, the
+    canonical no-swizzle K-major layout ``((8, n), (16, 2)) : ((16, SBO),
+    (1, LBO))`` in bytes."""
+    lbo, sbo = CORE_BYTES * width, CORE_ROWS * CORE_BYTES
+    return (K_STEP * step * width + (k // CORE_BYTES) * lbo + (n // CORE_ROWS) * sbo
+            + (n % CORE_ROWS) * CORE_BYTES + k % CORE_BYTES)
 
 
 def _planes(x: torch.Tensor, m_max: int) -> torch.Tensor:
@@ -112,16 +169,25 @@ def mxu_count_plain(P, tgt, m_max: int, payloads) -> torch.Tensor:
     return out
 
 
-def mxu_count(payloads, P, tgt, reps: int = 1) -> torch.Tensor:
+def mxu_count(payloads, P, tgt, reps: int = 1, live: int = None, out=None) -> torch.Tensor:
     """int32[U_pad] totals over one ``uint8[n, L]`` tile, times ``reps``.
 
     ``P`` int8[U_pad, C] and ``tgt`` int32[U_pad(, 1)] as :func:`bit_tables`
     makes them, on the tile's device; ``C`` is padded with zero columns to
     the kernel's depth when it is not a multiple of 32 (:class:`MxuMatcher`
-    keeps its tables padded, so its launches never pad)."""
+    keeps its tables padded, so its launches never pad).  ``live``, when
+    given, says that only the first ``live`` slots hold patterns: the kernel
+    skips the padded ones, whose totals are 0 either way.  ``out``, when
+    given (int32[U_pad] on the tile's device), receives the totals added to
+    what it holds, and is returned: one launch and nothing else per tile."""
     U_pad, C = P.shape
+    if live is None:
+        live = U_pad
+    if not 0 < live <= U_pad:
+        raise ValueError(f"live must be in 1..{U_pad}, got {live}")
     if device_kind(payloads, "mxu-count") == "cpu":
-        return mxu_count_plain(P, tgt, C // 8, payloads) * reps
+        got = mxu_count_plain(P, tgt, C // 8, payloads) * reps
+        return got if out is None else out.add_(got)
     dev = payloads.device
     for name, t, dtype, ndim in (("payloads", payloads, torch.uint8, 2), ("P", P, torch.int8, 2)):
         if t.device != dev:
@@ -139,15 +205,30 @@ def mxu_count(payloads, P, tgt, reps: int = 1) -> torch.Tensor:
     check_totals_bound(payloads, reps)
     if C % K_STEP:
         P = F.pad(P, (0, K_STEP - C % K_STEP))
-    out = torch.zeros(U_pad, dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.zeros(U_pad, dtype=torch.int32, device=dev)
+    elif out.device != dev or out.dtype != torch.int32 or out.shape != (U_pad,):
+        raise ValueError(f"out must be int32[{U_pad}] on {dev}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
     n, L = payloads.shape
     if n == 0 or L == 0:
         return out  # nothing to count: the zeroed output is the answer
     stream = torch.cuda.current_stream(dev).cuda_stream
-    LIBRARY.call("msm_mxu_count", payloads.data_ptr(), P.data_ptr(), tgt.contiguous().data_ptr(),
-                 out.data_ptr(), n, L, U_pad, P.shape[1], reps, dev.index or 0, stream)
+    LIBRARY.call("msm_mxu_count_live", payloads.data_ptr(), P.data_ptr(),
+                 tgt.contiguous().data_ptr(), out.data_ptr(), n, L, U_pad, P.shape[1], reps, live,
+                 dev.index or 0, stream)
     LAUNCHES["mxu_count" if reps == 1 else "mxu_count_repeated"] += 1
     return out
+
+
+def tile_shape(live: int, C: int) -> Tuple[int, int, int]:
+    """``(N, warpgroups, shared bytes)`` of the kernel's launch for ``live``
+    patterns at depth ``C`` (a multiple of 32): the wgmma width N (the
+    patterns split into ``ceil(live / N)`` blocks), the warpgroups of a
+    block and its dynamic shared memory.  Asks the built library."""
+    shape = (ctypes.c_int * 3)()
+    LIBRARY.call("msm_mxu_shape", live, C, ctypes.addressof(shape))
+    return shape[0], shape[1], shape[2]
 
 
 class MxuMatcher:
@@ -181,7 +262,7 @@ class MxuMatcher:
         total = torch.zeros(self._P.shape[0], dtype=torch.int32, device=self.device)
         for p, _ in tiles:
             p = torch.as_tensor(p, dtype=torch.uint8, device=self.device).contiguous()
-            total += mxu_count(p, self._P, self._tgt, reps)
+            mxu_count(p, self._P, self._tgt, reps, live=self.num_unique, out=total)
         return total[: self.num_unique]
 
     def count_tiles(self, tiles) -> torch.Tensor:

@@ -598,12 +598,31 @@ MXU_CASES = {
     "u-129": ([b"x%03d" % i for i in range(129)], 67, 40, 260, b"x0123"),
     "u-3072": (RS, 68, 64, 256, b"rs0123"),
     "zero-rows": ([b"ab"], 69, 0, 64, b"ab"),
+    # the wgmma tiling's edges: N-tile widths, pt x 3,072 at C = 64, rows
+    # shorter than, equal to and past one M-tile, and more row segments
+    # than the persistent grid has blocks
+    "u-88": ([b"x%03d" % i for i in range(88)], 70, 40, 260, b"x0123"),
+    "u-96": ([b"x%03d" % i for i in range(96)], 71, 40, 260, b"x0123"),
+    "u-256": ([b"x%03d" % i for i in range(256)], 72, 40, 260, b"x0123"),
+    "u-257": ([b"x%03d" % i for i in range(257)], 73, 40, 260, b"x0123"),
+    "pt-3072-c64": ([b"pt%06d" % i for i in range(3072)], 74, 97, 517, b"pt0123"),
+    "width-1": ([b"a", b"b", b"ab"], 75, 300, 1, b"ab"),
+    "width-63": ([b"ab", b"bab", b"a" * 20], 76, 300, 63, b"ab"),
+    "width-65": ([b"ab", b"bab", b"a" * 20], 77, 300, 65, b"ab"),
+    "segments-past-grid": (load_patterns(STANDIN), 78, 3000, 1100,
+                           b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ/:. "),
+    # four k-steps: N = 96 takes one M-tile at a time, N = 64 two
+    "u-90-k4": ([b"k%014d" % i for i in range(90)], 79, 200, 700, b"k0123456789"),
+    "u-60-k4": ([b"q%015d" % i for i in range(60)], 80, 200, 700, b"q0123456789"),
 }
+
+# Patterns of 8, 20 and 33 bytes (C = 264: three groups of k-steps).
+BOUNDARY_PATS = [b"abcdefgh", b"xy" * 10, b"q" + b"r" * 31 + b"q"]
 
 
 @pytest.mark.parametrize("case", sorted(MXU_CASES))
 def test_mxu_kernel_equals_plain(cuda_device, case):
-    """``mxu_count`` (int8 mma.sync) equals ``mxu_count_plain`` on the card,
+    """``mxu_count`` (int8 wgmma) equals ``mxu_count_plain`` on the card,
     with reps 1 and 3, on rows zero past their lengths."""
     from multithreading_string_matching_tpu_torch.ops import mxu
 
@@ -624,6 +643,33 @@ def test_mxu_kernel_equals_plain(cuda_device, case):
     m = mxu.MxuMatcher(pats, cuda_device)
     assert torch.equal(m.count_tiles([(p, ln)]), want[: len(pats)])
     assert n == 0 or want.sum() > 0
+
+
+@pytest.mark.parametrize("L", [2085, 4133])
+def test_mxu_kernel_segment_boundaries(cuda_device, L):
+    """A pattern planted at every offset that touches or straddles a
+    64-position boundary of long rows is counted once, as by the plain
+    version, with reps 1 and 3: every M-tile boundary, where the kernel's
+    units (and their alternating ring slots) may start, and the
+    2,048-position unit limit inside a row."""
+    from multithreading_string_matching_tpu_torch.ops import mxu
+
+    rows = []
+    for pat in BOUNDARY_PATS:
+        for b in range(64, L, 64):
+            for o in range(max(0, b - len(pat) - 1), min(b + 2, L - len(pat) + 1)):
+                row = np.full(L, ord("z"), np.uint8)
+                row[o : o + len(pat)] = np.frombuffer(pat, np.uint8)
+                rows.append(row)
+    p = torch.from_numpy(np.stack(rows)).to(cuda_device)
+    P, tgt, m_max = mxu.bit_tables(BOUNDARY_PATS)
+    P, tgt = torch.from_numpy(P).to(cuda_device), torch.from_numpy(tgt).to(cuda_device)
+    want = mxu.mxu_count_plain(P, tgt, m_max, p)
+    assert want[:3].tolist() == [sum(bytes(r).count(pat) for r in rows) for pat in BOUNDARY_PATS]
+    for reps in (1, 3):
+        got = mxu.mxu_count(p, P, tgt, reps=reps, live=len(BOUNDARY_PATS))
+        torch.cuda.synchronize()
+        assert torch.equal(got, reps * want), reps
 
 
 def test_mxu_wrapper_refuses_bad_inputs(cuda_device):

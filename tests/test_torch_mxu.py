@@ -162,3 +162,94 @@ def test_tool_on_cpu_prints_three_agreeing_rows():
     assert all(row["device"] == "cpu" and "mxu_bytes_per_sec" not in row for row in rows)
     # pt000000 is planted; the two pt sets hold it, and nothing else occurs.
     assert rows[1]["matches"] == rows[2]["matches"] > 0
+
+
+def _expanded(x: np.ndarray) -> np.ndarray:
+    """int8[r, L, 2, 4]: the kernel's expansion of each byte into two words
+    of four +-1 values (low nibble, high nibble; value j = bit j)."""
+    nib = np.stack([x & 15, x >> 4], axis=-1)[..., None] >> np.arange(4)
+    return ((nib & 1) * 2 - 1).astype(np.int8)
+
+
+@pytest.mark.parametrize("m_max, L", [(1, 5), (3, 64), (12, 130), (17, 70)])
+def test_window_fragment_rebuilds_planes(m_max, L):
+    """Every A-fragment register of every lane, M-tile and k-step, read from
+    the expanded bytes through ``window_fragment``, lands where ``_planes``
+    holds the same bits: the kernel's windows are the plain version's."""
+    rng = np.random.default_rng(m_max)
+    x = rng.integers(0, 256, size=(3, L), dtype=np.uint8)
+    C = -(-8 * m_max // mxu.K_STEP) * mxu.K_STEP
+    tiles = -(-L // mxu.M_TILE)
+    width = tiles * mxu.M_TILE + C // 8 + 8
+    exp = _expanded(np.pad(x, ((0, 0), (0, width - L))))
+    A = np.zeros((3, tiles * mxu.M_TILE, C), np.int8)
+    for m0 in range(0, tiles * mxu.M_TILE, mxu.M_TILE):
+        for warp in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for reg in range(4):
+                    for step in range(C // mxu.K_STEP):
+                        byte, nibble = mxu.window_fragment(warp, lane, reg, step)
+                        row = m0 + 16 * warp + g + 8 * (reg & 1)
+                        k = mxu.K_STEP * step + 16 * (reg >> 1) + 4 * t
+                        A[:, row, k : k + 4] = exp[:, m0 + byte, nibble]
+    want = mxu._planes(torch.from_numpy(x), m_max).numpy()
+    assert np.array_equal(A[:, :L, : 8 * m_max], want)
+
+
+@pytest.mark.parametrize("width", [16, 96, 256])
+def test_pattern_layout_rebuilds_bit_tables(width):
+    """``bit_tables``' P scattered into the shared layout by
+    ``pattern_smem_offset`` fills it once and reads back, k-step by k-step,
+    through the descriptor's addressing (``pattern_descriptor_offset``)."""
+    pats = [b"pt%06d" % i for i in range(width - 3)] + [b"\x01\xfe", b"z" * 40, b"q"]
+    P, _, m_max = mxu.bit_tables(pats)
+    C = -(-8 * m_max // mxu.K_STEP) * mxu.K_STEP
+    P = np.pad(P[:width], ((0, 0), (0, C - P.shape[1])))
+    smem = np.zeros(width * C, np.int16) + 999
+    n, c = np.meshgrid(np.arange(width), np.arange(C), indexing="ij")
+    offs = np.vectorize(mxu.pattern_smem_offset)(n, c, width)
+    assert sorted(offs.ravel().tolist()) == list(range(width * C))  # a bijection
+    smem[offs] = P
+    for step in range(C // mxu.K_STEP):
+        got = np.array([[smem[mxu.pattern_descriptor_offset(i, k, step, width)]
+                         for k in range(mxu.K_STEP)] for i in range(width)])
+        assert np.array_equal(got, P[:, mxu.K_STEP * step : mxu.K_STEP * (step + 1)])
+
+
+def test_live_count_is_checked():
+    P, tgt, _ = mxu.bit_tables([b"ab", b"b"])
+    P, tgt = torch.from_numpy(P), torch.from_numpy(tgt)
+    x = torch.tensor([[97, 98, 98]], dtype=torch.uint8)
+    assert mxu.mxu_count(x, P, tgt, live=2)[:2].tolist() == [1, 2]
+    for live in (0, P.shape[0] + 1):
+        with pytest.raises(ValueError, match="live"):
+            mxu.mxu_count(x, P, tgt, live=live)
+
+
+def test_out_accumulates_across_tiles():
+    """``out=`` adds a tile's totals to what the buffer holds and returns it
+    (the CPU path here; the kernel adds with atomics)."""
+    P, tgt, _ = mxu.bit_tables([b"ab", b"b"])
+    P, tgt = torch.from_numpy(P), torch.from_numpy(tgt)
+    x = torch.tensor([[97, 98, 98]], dtype=torch.uint8)
+    out = torch.zeros(P.shape[0], dtype=torch.int32)
+    assert mxu.mxu_count(x, P, tgt, out=out) is out
+    mxu.mxu_count(x, P, tgt, reps=2, out=out)
+    assert out[:2].tolist() == [3, 6]
+
+
+def test_turns_tool_imports_no_jax_and_needs_a_card():
+    """``tools/mxu_turns.py`` imports nothing of jax, and without a card it
+    exits non-zero and prints no result (it times only on the card)."""
+    code = ("import sys\n"
+            "import multithreading_string_matching_tpu_torch.tools.mxu_turns\n"
+            "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal is for hosts without one")
+    r = subprocess.run([sys.executable, "-m", "multithreading_string_matching_tpu_torch.tools.mxu_turns",
+                        "other.cu"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and not r.stdout
