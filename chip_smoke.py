@@ -119,6 +119,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    pack, stager wait, copy and launch enqueue) and the device time of its
    copies and kernels (CUDA events on the copy and compute streams).  The
    window, table and filter records gain ``stream_launches``.
+10. Match attribution at full width (``window_find``, the emit mode of
+   ``csrc/window_count.cu``).  ``match --offsets --json`` on phase 3's
+   capture, with the launch counters reset just before, must launch
+   ``window_find`` and its ``window_count_totals`` pass (one each a row
+   slice) and nothing else; its triples must be unique, bincount to phase
+   3's counts, and each read back on the host as its pattern's bytes; on
+   the first 8,192 rows they equal the plain version on the card.  The
+   same on phase 5's 3,072-rule capture.  ``--dump-matches`` writes the
+   hit packets, which re-count to phase 3's counts; ``--stream --offsets
+   --dump-matches`` gives the one-shot triples and dump bytes; ``--flows
+   --offsets`` and ``--flows --stream --offsets`` on phase 6's capture give
+   the same triples and phase 6's counts.  Times: ``window_find`` over the
+   staged stand-in batch (median of 20) and the device time of its three
+   steps queued alone, the kernel and the plain version on the first 8,192
+   rows, and the walls of ``match``, ``match --offsets``, ``match
+   --dump-matches``, ``match --stream`` and ``match --stream --offsets``
+   (median of 3, in turns).
 
 The line before the last is one JSON object with a record per kernel, each
 with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -137,6 +154,7 @@ the host could not stay ahead: the upper bound is printed instead).
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import hashlib
 import io
@@ -876,8 +894,9 @@ def shard_phase(dev, card: str, cw, ct, big, rules_file, cap2, batch2, big_count
             for form in ("filter", "table") for kind, line in (("totals", 474), ("rows", 501))]
 
 
-def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
-    """Phase 6; returns the kernel record entry of ``window_count_halo``."""
+def flow_phase(dev, card: str, patterns, pat_file, cw, ct):
+    """Phase 6; returns the kernel record entry of ``window_count_halo`` and
+    the flow capture's counts."""
     import torch
 
     from multithreading_string_matching_tpu_torch import cli
@@ -1117,7 +1136,7 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct) -> dict:
             "launches": launches["window_count_halo"], "max_abs_err": max_err,
             "ms": halo_ms, "device_ms": halo_dev, "plain_ms": plain_ms, "library_ms": None,
             **window_bound(kern.wp, position_words([(x, eff, ms.clamp(min=0))]), positions,
-                           kern.num_unique, label="window_count_halo")}
+                           kern.num_unique, label="window_count_halo")}, counts
 
 
 # Patterns of 8, 20 and 33 bytes (C = 264: three groups of k-steps).
@@ -1584,6 +1603,285 @@ def stream_phase(dev, card: str, cw, ct, matcher, patterns, pat_file, cap, count
     return launches
 
 
+WALL_ROUNDS = 3
+
+
+def cli_json(cli, argv):
+    """``(blob, wall seconds)`` of one ``--json`` command run in process."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([str(a) for a in argv])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{' '.join(map(str, argv))} exited {rc}: {err.getvalue()[-2000:]}")
+    return json.loads(out.getvalue().splitlines()[-1]), wall
+
+
+def check_triples(label, rows, wp, counts, payloads, lengths, row_ids) -> None:
+    """Hold ``(id, start, unique pattern)`` triples exact without the plain
+    version: their bincount (through ``dup_map``) equals ``counts``, no
+    triple repeats, and every triple's bytes, read on the host from its
+    row (``row_ids[r]`` is row r's id), equal its pattern and fit the row's
+    length."""
+    rows = np.asarray(rows, np.int64).reshape(-1, 3)
+    U = len(wp.unique_patterns)
+    check(np.array_equal(np.bincount(rows[:, 2], minlength=U)[wp.dup_map], np.asarray(counts)),
+          f"{label}: the triples' bincount differs from the counts")
+    check(np.unique(rows, axis=0).shape[0] == len(rows), f"{label}: a triple repeats")
+    r = np.minimum(np.searchsorted(row_ids, rows[:, 0]), len(row_ids) - 1)
+    check(np.array_equal(row_ids[r], rows[:, 0]), f"{label}: a triple names a row without bytes")
+    m = np.array([len(q) for q in wp.unique_patterns], np.int64)[rows[:, 2]]
+    check(bool(((rows[:, 1] >= 0) & (rows[:, 1] + m <= lengths[r])).all()),
+          f"{label}: a triple runs past its payload")
+    for ln in np.unique(m):
+        sel = m == ln
+        got = payloads[r[sel][:, None], rows[sel, 1][:, None] + np.arange(ln)[None, :]]
+        want = np.frombuffer(b"".join(wp.unique_patterns[u] for u in rows[sel, 2]),
+                             np.uint8).reshape(-1, ln)
+        check(np.array_equal(got, want), f"{label}: a triple's bytes differ from its pattern")
+    print(f"{label}: {len(rows)} triples, unique, bincount = counts, every triple's bytes = "
+          "its pattern (host check)")
+
+
+def attribution_phase(dev, card: str, cw, ct, matcher, pat_file, cap, batch, counts, big,
+                      rules_file, cap2, batch2, big_counts, flow_cap, flow_counts) -> dict:
+    """Phase 10, match attribution at full width; returns the kernel record
+    of ``window_find``."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch import cli
+    from multithreading_string_matching_tpu_torch.io.flows import extract_flows, key_tuple_bytes
+    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap, slice_pcap
+    from multithreading_string_matching_tpu_torch.ops.window import window_find_plain
+    from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
+
+    t_phase = time.perf_counter()
+    max_err = 0
+
+    def head_vs_plain(label, m, b, rows):
+        """The first ROWS_PER_PACKET_RUN rows: window_find equals the plain
+        version on the card, and so do the command's triples of those rows."""
+        nonlocal max_err
+        kern = m.halo_kernels
+        tabs = (kern.words, kern.masks, kern.lens)
+        hp = torch.from_numpy(b.payloads[:ROWS_PER_PACKET_RUN]).to(dev)
+        hl = torch.from_numpy(b.lengths[:ROWS_PER_PACKET_RUN]).to(dev)
+        got = cw.window_find(hp, hl, *tabs)
+        want, plain_once = timed_once(lambda: window_find_plain(*tabs, hp, hl))
+        check(got.shape == want.shape, f"window_find {label}: {tuple(got.shape)} triples, plain "
+              f"{tuple(want.shape)}")
+        err = int((got - want).abs().max()) if got.numel() else 0
+        max_err = max(max_err, err)
+        check(err == 0, f"window_find disagrees with the plain version on {label}")
+        valid = np.flatnonzero(b.valid)
+        head = rows[rows[:, 0] <= valid[min(ROWS_PER_PACKET_RUN, len(valid)) - 1]].copy()
+        head[:, 0] = np.searchsorted(valid, head[:, 0])
+        check(np.array_equal(head, want.cpu().numpy()),
+              f"{label}: match --offsets differs from the plain version on the first rows")
+        print(f"window_find {label}, first {hp.shape[0]} rows: {len(want)} triples = plain "
+              f"version ({plain_once:.4f} ms once) and = the command's")
+        return hp, hl, tabs
+
+    # -- the main path: match --offsets on phase 3's capture --------------
+    base = ["match", "--pcap", cap, "--patterns", pat_file, "--json"]
+    valid = np.flatnonzero(batch.valid)
+    torch.cuda.synchronize()
+    reset_launches(cw, ct)
+    blob, off_s = cli_json(cli, base + ["--offsets"])
+    launches = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
+    print(f"match --offsets --json (stand-in): {off_s:.4f} s wall, launches {launches}, "
+          f"{len(blob['offsets'])} triples [{card}]")
+    check(set(launches) == {"window_count_totals", "window_find"}
+          and launches["window_find"] == launches["window_count_totals"] >= 1,
+          f"match --offsets launched {launches}")
+    check(blob["counts"] == counts.tolist(), "match --offsets counts differ from phase 3's")
+    rows = np.asarray(blob["offsets"], np.int64).reshape(-1, 3)
+    check(len(rows) > 1000, f"only {len(rows)} triples")
+    check_triples("stand-in match --offsets", rows, matcher.window, counts, batch.payloads,
+                  batch.lengths, valid)
+    hp, hl, tabs = head_vs_plain("stand-in", matcher, batch, rows)
+
+    # -- times of window_find ---------------------------------------------
+    fp = torch.from_numpy(batch.payloads).to(dev)
+    fl = torch.from_numpy(batch.lengths).to(dev)
+    full = cw.window_find(fp, fl, *tabs)
+    mapped = rows.copy()
+    mapped[:, 0] = np.searchsorted(valid, rows[:, 0])
+    check(np.array_equal(full.cpu().numpy(), mapped), "window_find on the staged batch differs "
+          "from match --offsets")
+    M = int(full.shape[0])
+    find_ms = cuda_ms(lambda: cw.window_find(fp, fl, *tabs), SCAN_RUNS)
+    head_ms = cuda_ms(lambda: cw.window_find(hp, hl, *tabs), SCAN_RUNS)
+    plain_ms = cuda_ms(lambda: window_find_plain(*tabs, hp, hl), PLAIN_RUNS)
+    # Device time: its three device steps (totals launch, emit launch, key
+    # sort), each queued alone: the wrapper itself waits for M and the cursor.
+    n, L = fp.shape
+    U, K = tabs[0].shape
+    out = torch.empty((M, 3), dtype=torch.int32, device=dev)
+    cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def emit():
+        cursor.zero_()
+        cw.LIBRARY.call("msm_window_find", fp.data_ptr(), fl.data_ptr(), tabs[0].data_ptr(),
+                        tabs[1].data_ptr(), tabs[2].data_ptr(), cursor.data_ptr(), M,
+                        out.data_ptr(), n, L, U, K, dev.index or 0,
+                        torch.cuda.current_stream().cuda_stream)
+
+    def sort():
+        t = out.long()
+        return t[torch.argsort((t[:, 0] * L + t[:, 1]) * U + t[:, 2])]
+
+    steps = {"totals": device_ms(lambda: cw.window_count_totals(fp, fl, *tabs)),
+             "emit": device_ms(emit), "sort": device_ms(sort)}
+    check(int(cursor) == M and torch.equal(sort(), full), "the emit launch alone differs")
+    find_dev = None if None in steps.values() else sum(steps.values())
+    nbytes = batch.total_payload_bytes
+    bnd = window_bound(matcher.window, position_words([(fp, fl)]), nbytes, 3 * M,
+                       label="window_find (one pass)")
+    print(f"window_find, stand-in batch {tuple(fp.shape)} ({nbytes} payload bytes, {M} "
+          f"triples): {find_ms:.4f} ms (median of {SCAN_RUNS}; two launches, two host syncs, "
+          f"sort) = {nbytes / find_ms * 1e3:.6e} payload B/s; device "
+          + ", ".join(f"{k} {fmt_ms(v)}" for k, v in steps.items())
+          + f" = {fmt_ms(find_dev)}; first {hp.shape[0]} rows: kernel {head_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (median of {PLAIN_RUNS}); bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}), share {bnd['bound_ms'] / find_ms:.4f} [{card}]")
+    del fp, fl, full
+
+    # -- --dump-matches, --stream, and the walls ----------------------------
+    dump = pathlib.Path(tempfile.gettempdir()) / f"msm_torch_dump_{os.getpid()}.pcap"
+    dump2 = dump.with_suffix(".stream.pcap")
+    hit_packets = np.unique(rows[:, 0])
+    variants = {"match": [], "match --offsets": ["--offsets"],
+                "match --dump-matches": ["--dump-matches", dump], "match --stream": ["--stream"],
+                "match --stream --offsets": ["--stream", "--offsets"]}
+    walls = {k: [] for k in variants}
+    for _ in range(WALL_ROUNDS):
+        for k, flags in variants.items():
+            b, s = cli_json(cli, base + flags)
+            check(b["counts"] == counts.tolist(), f"{k} counts differ from phase 3's")
+            if "--offsets" in flags:
+                check(b["offsets"] == blob["offsets"], f"{k} triples differ from match --offsets")
+            if "--dump-matches" in flags:
+                check(b["dumped_packets"] == len(hit_packets),
+                      f"{k} dumped {b['dumped_packets']} packets, {len(hit_packets)} hit")
+            walls[k].append(s)
+    print("walls, stand-in capture (median of " + f"{WALL_ROUNDS}, in turns): " + ", ".join(
+        f"{k} {statistics.median(v):.4f} s ({', '.join(f'{x:.4f}' for x in v)})"
+        for k, v in walls.items()) + f" [{card}]")
+    dumped = read_pcap(dump)
+    check(dumped.num_packets == len(hit_packets), "the dump does not hold the hit packets")
+    check(np.array_equal(matcher.count_pcap(dump, "udp"), counts),
+          "the dump's re-count differs from phase 3's counts")
+    reset_launches(cw, ct)
+    b, s = cli_json(cli, base + ["--stream", "--offsets", "--dump-matches", dump2])
+    st_launches = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
+    check(b["counts"] == counts.tolist() and b["offsets"] == blob["offsets"]
+          and b["dumped_packets"] == len(hit_packets), "match --stream --offsets --dump-matches")
+    check(dump2.read_bytes() == dump.read_bytes(), "the streamed dump differs from the one-shot")
+    check(st_launches.get("window_find", 0) > 0 and st_launches.get("window_count_rows", 0) > 0,
+          f"match --stream --offsets launched {st_launches}")
+    print(f"--dump-matches: {dumped.num_packets} packets = the hit packets; re-counted = phase "
+          f"3's counts; match --stream --offsets --dump-matches ({s:.4f} s, launches "
+          f"{st_launches}) = one-shot triples and dump bytes [{card}]")
+    dump.unlink()
+    dump2.unlink()
+
+    # -- the 3,072 rules -------------------------------------------------------
+    reset_launches(cw, ct)
+    blob2, s = cli_json(cli, ["match", "--pcap", cap2, "--patterns", rules_file, "--json",
+                              "--offsets"])
+    launches2 = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
+    check(set(launches2) == {"window_count_totals", "window_find"},
+          f"match --offsets (3,072 rules) launched {launches2}")
+    check(blob2["counts"] == big_counts.tolist(), "3,072-rule triples' counts differ from phase 5")
+    rows2 = np.asarray(blob2["offsets"], np.int64).reshape(-1, 3)
+    print(f"match --offsets --json (3,072 rules): {s:.4f} s wall, launches {launches2} [{card}]")
+    check_triples("3,072 rules match --offsets", rows2, big.window, big_counts, batch2.payloads,
+                  batch2.lengths, np.flatnonzero(batch2.valid))
+    head_vs_plain("3,072 rules", big, batch2, rows2)
+
+    # -- flows ------------------------------------------------------------------
+    fb = extract_flows(read_pcap(flow_cap), "tcp")
+    fbase = ["match", "--pcap", flow_cap, "--patterns", pat_file, "--mode", "tcp", "--flows",
+             "--json", "--offsets"]
+    reset_launches(cw, ct)
+    one, s1 = cli_json(cli, fbase)
+    fl1 = {k: v for k, v in cw.LAUNCHES.items() if v}
+    reset_launches(cw, ct)
+    st, s2 = cli_json(cli, fbase + ["--stream"])
+    fl2 = {k: v for k, v in cw.LAUNCHES.items() if v}
+    check(one["counts"] == st["counts"] == flow_counts.tolist(),
+          "--flows [--stream] --offsets counts differ from phase 6's")
+    frows = np.asarray([r[:3] for r in one["offsets"]], np.int64).reshape(-1, 3)
+    check_triples("flows match --flows --offsets", frows, matcher.window, flow_counts,
+                  fb.payloads, fb.lengths, np.arange(fb.num_flows))
+    keyed = sorted((tuple(one["flow_keys"][f]), o, u) for f, o, u, _ in one["offsets"])
+    check(sorted((tuple(r[:4]), r[4], r[5]) for r in st["offsets"]) == keyed,
+          "--flows --stream --offsets triples differ from --flows --offsets")
+    check(fl1.get("window_find", 0) > 0 and fl2.get("window_find", 0) > 0
+          and fl2.get("window_count_halo", 0) > 0, f"flow launches {fl1}, {fl2}")
+    print(f"match --flows --offsets ({s1:.4f} s, launches {fl1}) and --flows --stream --offsets "
+          f"({s2:.4f} s, launches {fl2}): the same {len(keyed)} triples, phase 6's counts "
+          f"[{card}]")
+    # Where --flows --stream --offsets spends more than the counts-only
+    # stream: the per-round find pass (its find_matches calls inside it,
+    # synchronised) and the CLI's rendering of the triples.
+    pcap = read_pcap(flow_cap)
+    slices = [slice_pcap(pcap, i, i + FLOW_SLICE, copy=False)
+              for i in range(0, pcap.num_packets, FLOW_SLICE)]
+    split = {"find pass": 0.0, "find_matches": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    walls = {}
+    for collect in (False, True, False, True):
+        fs = FlowStreamMatcher(matcher, "tcp", engine="window", collect_offsets=collect)
+        if collect:
+            split.update({"find pass": 0.0, "find_matches": 0.0})
+            fs._collect_round_offsets = timed("find pass", fs._collect_round_offsets)
+            fs.matcher = copy.copy(matcher)
+            fs.matcher.find_matches = timed("find_matches", matcher.find_matches)
+        t0 = time.perf_counter()
+        for sl in slices:
+            fs.feed_pcap_slice(sl)
+        fs.flush()
+        got_counts, drained = fs.counts(), fs.drain_offsets()
+        walls.setdefault(collect, []).append(time.perf_counter() - t0)
+        check(np.array_equal(got_counts, flow_counts) and len(drained) == len(keyed) * collect,
+              "the timed flow streams differ")
+    render_s = {}
+    for label, name in (("a key a triple", key_tuple_bytes),
+                        ("a key a flow (the CLI's)",
+                         functools.lru_cache(maxsize=1 << 16)(key_tuple_bytes))):
+        t0 = time.perf_counter()
+        rendered = [[*name(k), int(o), int(u)] for k, o, u in drained]
+        render_s[label] = time.perf_counter() - t0
+        check(len(rendered) == len(keyed), "rendered triples")
+    print(f"flow stream, {len(slices)} slices (in turns): counts only "
+          f"{', '.join(f'{w:.4f}' for w in walls[False])} s, collect_offsets "
+          f"{', '.join(f'{w:.4f}' for w in walls[True])} s; last offsets run: find pass "
+          f"{split['find pass']:.4f} s, of which find_matches {split['find_matches']:.4f} s; "
+          f"rendering {len(drained)} triples' keys: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in render_s.items()) + f" [{card}]")
+    print(f"phase 10: {time.perf_counter() - t_phase:.3f} s")
+    return {"name": "window_find", "route": "cuda",
+            "source": "multithreading_string_matching_tpu_torch/csrc/window_count.cu",
+            "replaces": "multithreading_string_matching_tpu/ops/window.py:217",
+            "replaces_note": "no pl.pallas_call: the XLA bitmap _window_bitmap_group and the "
+                             "host np.nonzero of find_matches (:230)",
+            "launches": launches["window_find"], "max_abs_err": max_err, "ms": find_ms,
+            "device_ms": find_dev, "device_steps_ms": steps, "plain_ms": plain_ms,
+            "plain_covers": f"first {ROWS_PER_PACKET_RUN} rows", "ms_plain_rows": head_ms,
+            "library_ms": None, "matches": M, **bnd, "bound_share": bnd["bound_ms"] / find_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1611,6 +1909,7 @@ def run(dev) -> int:
         window_count,
     )
 
+    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}")
@@ -1734,7 +2033,9 @@ def run(dev) -> int:
           f"{batch.num_packets} packets, {int(batch.valid.sum())} valid, "
           f"{batch.total_payload_bytes} payload bytes, {int(counts.sum())} matches")
     for k, v in launches.items():
-        if k != "window_count_halo":  # the flow path's kernel: phase 6
+        # window_count_halo is the flow path's kernel (phase 6), window_find
+        # attribution's (phase 10).
+        if k not in ("window_count_halo", "window_find"):
             check(v > 0, f"{k} was not launched by the main path")
     check(counts.shape == (len(patterns),) and counts.dtype == np.int32,
           f"counts shape/dtype {counts.shape} {counts.dtype}")
@@ -2002,12 +2303,11 @@ def run(dev) -> int:
     del w2, w2r
 
     # -- 6. the flow path ---------------------------------------------------
-    halo_record = flow_phase(dev, card, patterns, pat_file, cw, ct)
+    halo_record, flow_counts = flow_phase(dev, card, patterns, pat_file, cw, ct)
 
     # -- 7. the sharded path --------------------------------------------------
     shard_records = shard_phase(dev, card, cw, ct, big, rules_file, cap2, batch2, big_counts,
                                 big_rows, filt_ms, cap, pat_file, patterns, counts, head_bounds)
-    rules_file.unlink()
 
     # -- 8. the matrix-unit measurement path ----------------------------------
     mxu_record = mxu_phase(dev, card, mx, matcher, prep, counts, head_p, head_l)
@@ -2015,6 +2315,12 @@ def run(dev) -> int:
     # -- 9. the streamed packet path ------------------------------------------
     stream_launches = stream_phase(dev, card, cw, ct, matcher, patterns, pat_file, cap, counts,
                                    big, rules, cap2, big_counts)
+
+    # -- 10. match attribution ------------------------------------------------
+    find_record = attribution_phase(dev, card, cw, ct, matcher, pat_file, cap, batch, counts, big,
+                                    rules_file, cap2, batch2, big_counts,
+                                    flow_capture(patterns, SEED), flow_counts)
+    rules_file.unlink()
 
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
     ref = "multithreading_string_matching_tpu/ops/pallas_window.py"
@@ -2064,11 +2370,13 @@ def run(dev) -> int:
         halo_record,
         *shard_records,
         mxu_record,
+        find_record,
     ]}
     # Launches of one streamed pass (phase 9) beside the records' own.
     for rec in record["kernels"]:
         if rec["name"] in stream_launches:
             rec["stream_launches"] = stream_launches[rec["name"]]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ kernels of ops/cuda_window.py for small pattern sets, the table and filter
 kernels of ops/cuda_table.py for large ones, chosen by the JAX package's
 rule.  It raises when CUDA is missing or the kernels do not build, and never
 carries on on the CPU.  ``device="cpu"`` runs the same path through the
-kernels' plain PyTorch versions.
+kernels' plain PyTorch versions.  :meth:`Matcher.find_matches` reports where
+each match is, on the window kernels' emit mode (``window_find``) whatever
+the engine, as the JAX package's always takes its window program.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ class Matcher:
       (ops/cuda_window.py).  ``MSM_PALLAS_TABLE=1``/``0`` forces either.
     - ``'window'``: the plain PyTorch window count (ops/window.py) on the
       matcher's device.
-    - ``'ac'``, ``'kmp'``: not yet ported (ROADMAP Queue 1 item 6,
+    - ``'ac'``, ``'kmp'``: not yet ported (ROADMAP Queue 1 item 4,
       ``ops/scan.py``); they raise ``NotImplementedError``.
     - ``'auto'``: the JAX package's rule, decided from the pattern list.
     """
@@ -147,11 +149,12 @@ class Matcher:
     @property
     def halo_kernels(self) -> CudaWindowMatcher:
         """The window kernels that count flow-stream rounds
-        (``count_tile_halo``): this matcher's own kernels when it takes the
-        window kernels, else window kernels over the same program.  The
-        table kernels have no halo form, so large sets take the window
-        kernel's halo mode too (the JAX package sends them to its XLA
-        window form instead; the counts are the same)."""
+        (``count_tile_halo``) and find matches (``find_tile``): this
+        matcher's own kernels when it takes the window kernels, else window
+        kernels over the same program.  The table kernels have neither
+        form, so large sets take the window kernel's modes too (the JAX
+        package sends them to its XLA window form instead; the results are
+        the same)."""
         if self._halo_kernels is None:
             own = self._kernels
             self._halo_kernels = (own if isinstance(own, CudaWindowMatcher)
@@ -226,7 +229,7 @@ class Matcher:
         if engine in ("ac", "kmp"):
             raise NotImplementedError(
                 f"engine {engine!r} is not yet ported to the torch package "
-                "(ROADMAP Queue 1 item 6: ops/scan.py)"
+                "(ROADMAP Queue 1 item 4: ops/scan.py)"
             )
         return engine
 
@@ -469,6 +472,47 @@ class Matcher:
 
     def count_batch(self, batch: PayloadBatch, **kw) -> np.ndarray:
         return self.count(batch.payloads, batch.lengths, **kw)
+
+    def find_matches(self, payloads, lengths) -> np.ndarray:
+        """Match offsets: int64[M, 3] rows of ``(packet, start,
+        unique_pattern_idx)``, sorted by packet, start, pattern.
+
+        ``self.window.dup_map`` maps original pattern indices to the unique
+        indices in column 2; ``self.window.unique_patterns`` hold the bytes.
+        The batch is staged as given and found in row slices of fewer than
+        ``parallel.mesh.SUMMARY_MAX_POSITIONS`` positions (rows and starts
+        are int32 on the card): ``window_find`` on the card, its plain
+        version on the CPU.
+        """
+        from multithreading_string_matching_tpu_torch.parallel import mesh as mesh_mod
+
+        kern = self.halo_kernels
+        p, l = self._stage(self._maybe_fold(np.asarray(payloads, dtype=np.uint8)), lengths)
+        n, L = p.shape
+        step = max(n, 1)
+        if n * L >= mesh_mod.SUMMARY_MAX_POSITIONS:
+            step = (mesh_mod.SUMMARY_MAX_POSITIONS - 1) // L
+            if step < 1:
+                raise ValueError(f"rows of {L} bytes exceed the int32 position bound")
+        parts = []
+        for s in range(0, n, step):
+            t = kern.find_tile(p[s : s + step], l[s : s + step])
+            t[:, 0] += s
+            parts.append(t)
+        if not parts:
+            return np.zeros((0, 3), dtype=np.int64)
+        return torch.cat(parts).cpu().numpy()
+
+    def counts_from_match_rows(self, rows) -> np.ndarray:
+        """Expanded int64[P] counts from :meth:`find_matches` rows: the
+        bincount over unique patterns, expanded through ``dup_map`` (the
+        rows are the counts)."""
+        rows = np.asarray(rows)
+        uniq = np.bincount(
+            rows[:, 2] if rows.size else np.zeros(0, np.int64),
+            minlength=len(self.window.unique_patterns),
+        )
+        return uniq[self.window.dup_map].astype(np.int64)
 
     def count_pcap(
         self,

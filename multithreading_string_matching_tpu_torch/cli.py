@@ -9,6 +9,7 @@ Counterpart of ``multithreading_string_matching_tpu/cli.py``::
   python -m multithreading_string_matching_tpu_torch match  --pcap F [--pcap F ...] --patterns F
         [--mode udp|tcp] [--engine auto|pallas|window|ac|kmp] [--nocase]
         [--vlan] [--ipv6] [--per-packet] [--staging auto|packed|bucketed]
+        [--offsets] [--dump-matches OUT.pcap]
         [--stream [--host-workers N]] [--flows [--reorder] [--stream]]
         [--sharded [--shard-axis auto|packets|patterns|both]] [--json]
 
@@ -35,14 +36,20 @@ a time, reloading the rules file on SIGHUP.  ``--sharded`` spreads the scan
 over a mesh of every device of ``MSM_DEVICE``'s type (each card; one shard
 on the CPU): the packet axis, the pattern axis (each shard holds 1/N of the
 rule set) or both; ``auto`` takes the pattern axis for table-route sets on
-more than one device, the packet axis otherwise.  The ``live`` and
-``mesh`` commands and match's offset, dump and distributed options are not
-yet ported (ROADMAP).
+more than one device, the packet axis otherwise.  ``--offsets`` reports
+every match as ``(packet, start, pattern)`` (for flows: the flow, the
+offset in its reassembled stream and the capture packet holding it) and
+``--dump-matches OUT.pcap`` writes the matching packets (for flows: every
+packet of a hit flow) to a new classic pcap, on every one of these paths;
+repeated ``--pcap`` files scan as one corpus, packets numbered in input
+order.  The ``live`` and ``mesh`` commands and match's distributed option
+are not yet ported (ROADMAP).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 import time
@@ -201,8 +208,8 @@ def cmd_match(argv: List[str]) -> int:
     monitor."""
     p = argparse.ArgumentParser(prog="match")
     p.add_argument("--pcap", action="append", required=True,
-                   help="capture file ('-' reads stdin); repeatable with --stream: "
-                        "the captures stream as one corpus")
+                   help="capture file; repeatable — multiple captures (e.g. rotated "
+                        "files) scan as one corpus, packets numbered in input order")
     p.add_argument("--patterns", required=True)
     p.add_argument("--mode", choices=["udp", "tcp"], default="udp")
     p.add_argument("--engine", choices=["auto", "pallas", "window", "ac", "kmp"],
@@ -229,9 +236,12 @@ def cmd_match(argv: List[str]) -> int:
                    help="with --sharded: packets (data parallel), patterns (each device "
                         "holds 1/N of the rule set), both (2-D mesh), or auto (patterns "
                         "for table-route sets on more than one device)")
-    for flag in ("--offsets", "--distributed"):
-        p.add_argument(flag, action="store_true", help="not yet ported")
-    p.add_argument("--dump-matches", metavar="OUT.pcap", help="not yet ported")
+    p.add_argument("--offsets", action="store_true",
+                   help="also emit (packet, start, pattern) match positions")
+    p.add_argument("--dump-matches", metavar="OUT.pcap",
+                   help="write the packets that contained at least one match to a new "
+                        "classic pcap (original bytes and timestamps preserved)")
+    p.add_argument("--distributed", action="store_true", help="not yet ported")
     p.add_argument("--host-workers", type=int, default=0, metavar="N",
                    help="with --stream: thread the host stages (prefetched ingest + N "
                         "parallel extract workers); identical counts, faster wall clock "
@@ -287,14 +297,9 @@ def cmd_match(argv: List[str]) -> int:
             raise SystemExit("--distributed streaming is counts-only (per-host tiles, "
                              "one end-of-run merge); drop --sharded/--offsets/"
                              "--dump-matches")
-    unported = [f for f, on in (("--offsets", a.offsets), ("--dump-matches", a.dump_matches),
-                                ("--distributed", a.distributed),
-                                ("repeated --pcap without --stream",
-                                 len(a.pcap) > 1 and not a.stream)) if on]
-    if unported:
+    if a.distributed:
         raise NotImplementedError(
-            f"match {', '.join(unported)} is not yet ported to the torch package (ROADMAP)"
-        )
+            "match --distributed is not yet ported to the torch package (ROADMAP)")
     if a.flows and a.stream:
         return _match_flow_stream(a, matcher, timer)
     if a.flows:
@@ -303,20 +308,68 @@ def cmd_match(argv: List[str]) -> int:
         return _match_stream(a, matcher, timer, shard_axis)
 
     from multithreading_string_matching_tpu_torch.io.decode import extract_payloads
-    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
 
     with timer.phase("ingest"):
-        pcap = read_pcap(a.pcap[0])
+        pcap = _read_corpus(a.pcap)
     with timer.phase("extract"):
         batch = extract_payloads(pcap, a.mode, pad_n_to=128, pad_len_to=8,
                                  vlan=a.vlan, ipv6=a.ipv6)
     with timer.phase("scan"):
-        if a.sharded and a.per_packet:
-            counts = _sharded_rows(a, matcher, shard_axis, batch.payloads, batch.lengths)
-        elif a.sharded:
+        offsets = None
+        hit_rows = None
+        per_row = None
+        sharded_attr = a.sharded and bool(a.per_packet or a.dump_matches or a.offsets)
+        if a.sharded and not sharded_attr:
             counts = _sharded_counts(a, matcher, shard_axis, batch.payloads, batch.lengths)
+        elif sharded_attr:
+            # One sharded per-row pass serves --per-packet, --dump-matches
+            # and --offsets; without --per-packet only totals and hit flags
+            # leave the devices, and positions come from the hit rows only.
+            if a.per_packet:
+                per_row = _sharded_rows(a, matcher, shard_axis, batch.payloads, batch.lengths)
+                counts = per_row
+                hit_rows = np.flatnonzero(per_row.sum(axis=1) > 0)
+            else:
+                tot, hits = _sharded_summary(a, matcher, shard_axis, batch.payloads,
+                                             batch.lengths)
+                counts = _exact_counts(tot[matcher.window.dup_map])
+                hit_rows = np.flatnonzero(hits)
+            hit_rows = hit_rows[hit_rows < int(batch.valid.sum())]
+            if a.offsets:
+                offsets = matcher.find_matches(batch.payloads[hit_rows], batch.lengths[hit_rows])
+                if offsets.size:
+                    offsets[:, 0] = hit_rows[offsets[:, 0]]
+        elif a.offsets and not a.per_packet:
+            # One find_matches pass gives every output: the triples are the
+            # counts, the offsets and the dump selection.
+            offsets = matcher.find_matches(batch.payloads, batch.lengths)
+            counts = _exact_counts(matcher.counts_from_match_rows(offsets))
+            hit_rows = (np.unique(offsets[:, 0]) if offsets.size
+                        else np.zeros(0, np.int64))
+        elif a.dump_matches and not a.per_packet:
+            # The per-row counts give the dump and, as column sums, the totals.
+            if a.staging != "auto":
+                print(f"# note: --dump-matches uses the per-row kernel; "
+                      f"--staging {a.staging} does not apply", file=sys.stderr)
+            per_row = np.asarray(matcher.count_batch(batch, per_packet=True))
+            counts = _exact_counts(per_row.sum(axis=0, dtype=np.int64))
         else:
             counts = matcher.count_batch(batch, per_packet=a.per_packet, staging=a.staging)
+            if a.per_packet:
+                per_row = np.asarray(counts)
+        if a.offsets and offsets is None:
+            offsets = matcher.find_matches(batch.payloads, batch.lengths)
+    valid_idx = np.flatnonzero(batch.valid)
+    if offsets is not None and len(offsets):
+        # Capture packet numbers: find_matches rows index the valid payloads.
+        offsets[:, 0] = valid_idx[offsets[:, 0]]
+    dumped = None
+    if a.dump_matches:
+        from multithreading_string_matching_tpu_torch.io.pcap import write_pcap
+
+        if hit_rows is None:
+            hit_rows = np.flatnonzero(per_row[: valid_idx.size].sum(axis=1) > 0)
+        dumped = write_pcap(a.dump_matches, pcap, valid_idx[hit_rows])
     if a.json:
         blob = {
             "patterns": [pt.decode("latin-1") for pt in matcher.patterns],
@@ -325,16 +378,40 @@ def cmd_match(argv: List[str]) -> int:
             "valid_payloads": int(batch.valid.sum()),
             "payload_bytes": batch.total_payload_bytes,
             "phases": timer.phases,
-            "execution": _execution_blob(matcher, a.sharded, attribution=a.sharded and a.per_packet,
+            "execution": _execution_blob(matcher, a.sharded, attribution=sharded_attr,
                                          shard_axis=shard_axis if a.sharded else None),
         }
         if a.sharded:
             blob["execution"]["shard_axis"] = shard_axis
+        if offsets is not None:
+            blob["offsets"] = offsets.tolist()  # (packet, start, unique_pattern)
+            blob["unique_patterns"] = _unique_names(matcher)
+        if dumped is not None:
+            blob["dump_path"] = a.dump_matches
+            blob["dumped_packets"] = dumped
         _print_json(blob)
     else:
         _report(matcher, _exact_counts(counts), timer.total)
+        if offsets is not None:
+            uniq = matcher.window.unique_patterns
+            for n, i, u in offsets.tolist():
+                print(f"packet {n} @ {i}: {uniq[u].decode('latin-1')}")
+        if dumped is not None:
+            print(f"# wrote {dumped} matching packets to {a.dump_matches}", file=sys.stderr)
         print(f"# {timer.summary()}", file=sys.stderr)
     return 0
+
+
+def _read_corpus(paths):
+    """Every ``--pcap`` read and concatenated into one capture, packets
+    numbered in input order."""
+    from multithreading_string_matching_tpu_torch.io.pcap import concat_pcaps, read_pcap
+
+    return concat_pcaps([read_pcap(p) for p in paths])
+
+
+def _unique_names(matcher) -> list:
+    return [pt.decode("latin-1") for pt in matcher.window.unique_patterns]
 
 
 def _sharded_counts(a, matcher, shard_axis: str, payloads, lengths) -> np.ndarray:
@@ -388,6 +465,30 @@ def _sharded_rows(a, matcher, shard_axis: str, payloads, lengths) -> np.ndarray:
                               engine=row_eng)
 
 
+def _sharded_summary(a, matcher, shard_axis: str, payloads, lengths):
+    """``(unique totals int64[U], row hit flags)`` over the mesh, reduced on
+    each shard's device: the attribution pass of ``--sharded`` with
+    ``--offsets`` or ``--dump-matches`` (the window family)."""
+    row_eng = "pallas" if matcher._requested_engine(a.engine) == "pallas" else "window"
+    dev_type = matcher.device.type
+    if shard_axis in ("patterns", "both"):
+        from multithreading_string_matching_tpu_torch.parallel.pattern_shard import (
+            count_rows_summary_pattern_sharded,
+            resolve_shard_mesh,
+        )
+
+        return count_rows_summary_pattern_sharded(
+            matcher, payloads, lengths, resolve_shard_mesh(shard_axis, device_type=dev_type),
+            engine=row_eng)
+    from multithreading_string_matching_tpu_torch.parallel.mesh import (
+        count_rows_summary,
+        make_mesh,
+    )
+
+    return count_rows_summary(matcher, payloads, lengths, make_mesh(device_type=dev_type),
+                              engine=row_eng)
+
+
 def _print_json(blob: dict) -> None:
     import json
 
@@ -395,24 +496,56 @@ def _print_json(blob: dict) -> None:
 
 
 def _match_flows(a, matcher, timer, shard_axis: str) -> int:
-    """One-shot ``--flows``: reassemble every flow, count over the streams."""
+    """One-shot ``--flows``: reassemble every flow, count over the streams;
+    with ``--offsets`` the matches' flows, stream offsets and capture
+    packets, with ``--dump-matches`` every packet of every hit flow."""
     from multithreading_string_matching_tpu_torch.io.flows import extract_flows
-    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
 
     with timer.phase("ingest"):
-        pcap = read_pcap(a.pcap[0])
+        pcap = _read_corpus(a.pcap)
     with timer.phase("extract"):
         fb = extract_flows(pcap, a.mode, reorder=a.reorder, ipv6=a.ipv6, vlan=a.vlan)
     with timer.phase("scan"):
+        flow_rows = None
+        hit_flows = None
         if a.sharded and fb.num_flows == 0:
             # The answer for a capture without flows is known.
             counts = np.zeros(len(matcher.patterns), np.int64)
+            if a.offsets:
+                flow_rows = np.zeros((0, 3), np.int64)
+        elif a.sharded and (a.offsets or a.dump_matches):
+            # One summary pass on the mesh (totals and hit-flow flags), then
+            # positions from the hit flows only.
+            tot, hits = _sharded_summary(a, matcher, shard_axis, fb.payloads, fb.lengths)
+            counts = _exact_counts(tot[matcher.window.dup_map])
+            hit = np.flatnonzero(hits)
+            hit_flows = hit = hit[hit < fb.num_flows]  # padding rows cannot hit
+            if a.offsets:
+                flow_rows = matcher.find_matches(fb.payloads[hit], fb.lengths[hit])
+                if flow_rows.size:
+                    flow_rows[:, 0] = hit[flow_rows[:, 0]]
         elif a.sharded:
             counts = _sharded_counts(a, matcher, shard_axis, fb.payloads, fb.lengths)
+        elif a.offsets or a.dump_matches:
+            # One find_matches pass serves counts, positions and the hit flows.
+            flow_rows = matcher.find_matches(fb.payloads, fb.lengths)
+            counts = matcher.counts_from_match_rows(flow_rows)
         else:
             counts = matcher.count(fb.payloads, fb.lengths)
+    if a.dump_matches:
+        # Every packet of every hit flow, original bytes and timestamps.
+        from multithreading_string_matching_tpu_torch.io.pcap import write_pcap
+
+        if hit_flows is None:
+            hit_flows = (np.unique(flow_rows[:, 0]) if flow_rows is not None and flow_rows.size
+                         else np.zeros(0, np.int64))
+        hit_b = np.zeros(max(fb.num_flows, 1), bool)
+        hit_b[np.asarray(hit_flows, np.int64)] = True
+        fop = fb.flow_of_packet
+        write_pcap(a.dump_matches, pcap,
+                   (fop >= 0) & hit_b[np.clip(fop, 0, hit_b.size - 1)])
     if a.json:
-        _print_json({
+        blob = {
             "patterns": [pt.decode("latin-1") for pt in matcher.patterns],
             "counts": np.asarray(counts).tolist(),
             "flows": fb.num_flows,
@@ -420,11 +553,27 @@ def _match_flows(a, matcher, timer, shard_axis: str) -> int:
             "packets": fb.num_packets,
             "stream_bytes": fb.total_payload_bytes,
             "phases": timer.phases,
-            "execution": _execution_blob(matcher, a.sharded,
+            "execution": _execution_blob(matcher, a.sharded, attribution=a.offsets,
                                          shard_axis=shard_axis if a.sharded else None),
-        })
+        }
+        if a.dump_matches:
+            blob["dump_path"] = a.dump_matches
+        if a.offsets and flow_rows is not None:
+            # Each row carries the capture packet whose segment holds the
+            # match's first byte.
+            blob["offsets"] = [[f, i, u, fb.packet_of_offset(f, i)]
+                               for f, i, u in flow_rows.tolist()]
+            blob["flow_keys"] = [list(fb.key_tuple(f)) for f in range(fb.num_flows)]
+            blob["unique_patterns"] = _unique_names(matcher)
+        _print_json(blob)
     else:
         _report(matcher, _exact_counts(counts), timer.total)
+        if a.offsets and flow_rows is not None:
+            uniq = matcher.window.unique_patterns
+            for f, i, u in flow_rows.tolist():
+                src, dst, sp, dp = fb.key_tuple(f)
+                print(f"flow {src}:{sp}->{dst}:{dp} @ {i} "
+                      f"(packet {fb.packet_of_offset(f, i)}): {uniq[u].decode('latin-1')}")
     return 0
 
 
@@ -461,24 +610,49 @@ def _match_flow_stream(a, matcher, timer) -> int:
     is the daemon shape)."""
     import signal
 
+    from multithreading_string_matching_tpu_torch.io.flows import key_tuple_bytes
     from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
     from multithreading_string_matching_tpu_torch.utils.report import format_report
 
     fse = _flow_stream_engine(a, matcher)
+    if a.offsets:
+        # The find pass reads the per-flow byte tail that only the window
+        # layout carries; counts are the same on either engine.
+        fse = "window"
     if a.sharded and a.shard_axis in ("patterns", "both"):
         # Only an explicit request errors (auto takes the lane axis here):
         # each lane's carried tail pins it to one shard.
         raise SystemExit("--flows --stream shards the flow-lane axis only: drop "
                          "--shard-axis or use --shard-axis packets")
     fs = FlowStreamMatcher(matcher, a.mode, engine=fse, reorder=a.reorder, ipv6=a.ipv6,
-                           vlan=a.vlan, sharded=a.sharded)
+                           vlan=a.vlan, sharded=a.sharded, collect_offsets=a.offsets)
     reload_flag = {"hup": False}
     old_hup = None
-    if hasattr(signal, "SIGHUP"):
+    # With --offsets the old and new pattern index spaces cannot share one
+    # report, so SIGHUP keeps its default.
+    if hasattr(signal, "SIGHUP") and not a.offsets:
         old_hup = signal.signal(signal.SIGHUP, lambda s, f: reload_flag.__setitem__("hup", True))
     # The batch size is the reload and feed latency on a pipe: iter_pcap
     # yields on a full batch or at EOF (rounds are still set by scan_bytes).
     flow_batch = int(os.environ.get("MSM_FLOW_BATCH", "8192"))
+    # Text mode prints each drained triple once its round is scanned
+    # (bounded memory); --json holds them for the one final blob.  A flow's
+    # key is rendered once, not once a triple (bounded for the daemon).
+    hits = [] if a.offsets else None
+    key_name = functools.lru_cache(maxsize=1 << 16)(key_tuple_bytes)
+
+    def emit_hits():
+        if hits is None:
+            return
+        drained = fs.drain_offsets()
+        if a.json:
+            hits.extend(drained)
+            return
+        uniq = fs.matcher.window.unique_patterns
+        for k, o, u in drained:
+            src, dst, sp, dp = key_name(k)
+            print(f"flow {src}:{sp}->{dst}:{dp} @ {o}: {uniq[u].decode('latin-1')}")
+
     reloads = 0
     try:
         with timer.phase("scan"):
@@ -507,7 +681,9 @@ def _match_flow_stream(a, matcher, timer) -> int:
                             print(format_report(matcher.patterns, prev, None), file=sys.stderr)
                         matcher = new_matcher
                 fs.feed_pcap_slice(chunk)
+                emit_hits()
             fs.flush()
+            emit_hits()
     finally:
         if old_hup is not None:
             signal.signal(signal.SIGHUP, old_hup)
@@ -525,6 +701,11 @@ def _match_flow_stream(a, matcher, timer) -> int:
         }
         if reloads:
             blob["reloads"] = reloads
+        if hits is not None:
+            # Keys ride inline (the flow set is unbounded); offsets are byte
+            # positions in the flow's reassembled stream.
+            blob["offsets"] = [[*key_name(k), int(o), int(u)] for k, o, u in hits]
+            blob["unique_patterns"] = _unique_names(matcher)
         _print_json(blob)
     else:
         _report(matcher, _exact_counts(counts), timer.total)
@@ -533,17 +714,32 @@ def _match_flow_stream(a, matcher, timer) -> int:
 
 def _match_stream(a, matcher, timer, shard_axis: str) -> int:
     """``--stream``: the bounded-memory packed-tile scan over every
-    ``--pcap`` in turn (parallel/pipeline.count_pcap_streamed)."""
-    from multithreading_string_matching_tpu_torch.parallel.pipeline import count_pcap_streamed
+    ``--pcap`` in turn (parallel/pipeline.count_pcap_streamed); with
+    ``--offsets`` or ``--dump-matches`` the per-row streamed scan
+    (parallel/pipeline.scan_pcap_streamed)."""
+    from multithreading_string_matching_tpu_torch.parallel.pipeline import (
+        count_pcap_streamed,
+        scan_pcap_streamed,
+    )
 
     stream_stats: dict = {}
+    stream_offsets = None
     with timer.phase("scan"):
-        counts = count_pcap_streamed(
-            matcher, a.pcap, a.mode, vlan=a.vlan, ipv6=a.ipv6, engine=a.engine,
-            stats=stream_stats, sharded=a.sharded,
-            shard_axis=shard_axis if a.sharded else "packets",
-            host_workers=a.host_workers,
-        )
+        if a.dump_matches or a.offsets:
+            res = scan_pcap_streamed(
+                matcher, a.pcap, a.mode, dump_path=a.dump_matches, offsets=a.offsets,
+                vlan=a.vlan, ipv6=a.ipv6, stats=stream_stats, sharded=a.sharded,
+                shard_axis=shard_axis if a.sharded else "packets",
+                host_workers=a.host_workers,
+            )
+            counts, stream_offsets = res if a.offsets else (res, None)
+        else:
+            counts = count_pcap_streamed(
+                matcher, a.pcap, a.mode, vlan=a.vlan, ipv6=a.ipv6, engine=a.engine,
+                stats=stream_stats, sharded=a.sharded,
+                shard_axis=shard_axis if a.sharded else "packets",
+                host_workers=a.host_workers,
+            )
     # The pipeline reports the engine it ACTUALLY resolved.
     actual_engine = stream_stats.pop("engine_resolved", None)
     if a.json:
@@ -552,13 +748,27 @@ def _match_stream(a, matcher, timer, shard_axis: str) -> int:
             "counts": np.asarray(counts).tolist(),
             **stream_stats,  # host_workers / packets / valid_payloads / payload_bytes
             "phases": timer.phases,
-            "execution": _execution_blob(matcher, a.sharded, actual=actual_engine),
+            "execution": _execution_blob(matcher, a.sharded,
+                                         attribution=bool(a.dump_matches or a.offsets),
+                                         actual=actual_engine),
         }
         if a.sharded:
             blob["execution"]["shard_axis"] = shard_axis
+        if a.dump_matches:
+            blob["dump_path"] = a.dump_matches
+        if stream_offsets is not None:
+            blob["offsets"] = stream_offsets.tolist()
+            blob["unique_patterns"] = _unique_names(matcher)
         _print_json(blob)
     else:
         _report(matcher, counts, timer.total)
+        if stream_offsets is not None:
+            uniq = matcher.window.unique_patterns
+            for n, i, u in stream_offsets.tolist():
+                print(f"packet {n} @ {i}: {uniq[u].decode('latin-1')}")
+        if a.dump_matches:
+            print(f"# wrote {stream_stats.get('dumped_packets', 0)} matching packets to "
+                  f"{a.dump_matches}", file=sys.stderr)
     return 0
 
 

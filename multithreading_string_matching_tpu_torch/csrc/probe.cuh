@@ -85,6 +85,12 @@
 // the end of the launch (exact, order-free); per-row counts are added to
 // the zeroed output row by integer atomicAdd at each hit (hits are rare:
 // the output, not the atomics, is the per-row form's cost).
+//
+// Emit (kEmit, window form only: no filter, no halo): each match takes a
+// slot k = atomicAdd(cursor, 1) of a 64-bit cursor and, when k < emit_cap,
+// writes the int32 triple (row, start, pattern) there.  Slots are taken in
+// no fixed order; the caller sizes the buffer from a totals launch over the
+// same tile, checks cursor == that total, and sorts.
 
 #pragma once
 
@@ -115,7 +121,9 @@ struct Args {
   const uint32_t* words;      // uint32[U, kw]
   const uint32_t* masks;      // uint32[U, kw]
   const int32_t* lens;        // int32[U]
-  int32_t* out;               // int32[U] (totals) or int32[n, U] (per row)
+  int32_t* out;               // int32[U] (totals), int32[n, U] (per row) or int32[cap, 3] (emit)
+  unsigned long long* cursor; // emit only: matches found so far
+  int64_t emit_cap;           // emit only: rows of out
   int64_t n, L;
   int U, K, kw, pc;           // pc: the probe column (0, or K for the filter)
   int min_end;                // halo mode only
@@ -180,8 +188,9 @@ __device__ __forceinline__ int stage_segment(uint4* s_stage4, const uint8_t* row
   return d;
 }
 
-template <bool kFilter, bool kPerRow, bool kHalo>
+template <bool kFilter, bool kPerRow, bool kHalo, bool kEmit = false>
 __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
+  static_assert(!kEmit || (!kFilter && !kPerRow && !kHalo), "emit is a window-form mode");
   extern __shared__ uint4 smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   uint4* s_stage4 = smem + warp * (a.stage_bytes / 16);                       // [kWarps][stage_bytes]
@@ -301,7 +310,15 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
           for (int k = vk; k < a.K; ++k) {
             if ((word_at(s_stage, d + s + 4 * k) & __ldg(masks + g + k)) != __ldg(words + g + k)) return;
           }
-          if (kPerRow) {
+          if (kEmit) {
+            const unsigned long long k = atomicAdd(a.cursor, 1ull);
+            if (k < static_cast<unsigned long long>(a.emit_cap)) {
+              int32_t* t = a.out + 3 * k;
+              t[0] = static_cast<int32_t>(row);
+              t[1] = static_cast<int32_t>(seg + s);
+              t[2] = u0 + static_cast<int32_t>(j);
+            }
+          } else if (kPerRow) {
             atomicAdd(&a.out[row * a.U + u0 + j], 1);
           } else {
             atomicAdd(&s_hist[j], 1);
@@ -332,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
       }
     }
 
-    if (!kPerRow) {
+    if (!kPerRow && !kEmit) {
       __syncthreads();
       for (int j = threadIdx.x; j < cu; j += kThreads) {
         if (s_hist[j]) atomicAdd(&a.out[u0 + j], s_hist[j]);
@@ -344,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
 // Choose the layout, opt in to the shared memory it needs, and launch one
 // block per resident slot of the card (at most one per kWarps rows), reps
 // times over.
-template <bool kFilter, bool kPerRow, bool kHalo>
+template <bool kFilter, bool kPerRow, bool kHalo, bool kEmit = false>
 cudaError_t probe_launch(Args a, int reps, int device, cudaStream_t stream) {
   a.chunk = a.U < kMaxChunk ? a.U : kMaxChunk;
   a.bits = table_bits(a.U);
@@ -355,7 +372,7 @@ cudaError_t probe_launch(Args a, int reps, int device, cudaStream_t stream) {
   a.stage_bytes = ((a.cap + 4 * a.K + 15 + 15) / 16 + 1) * 16;
   const size_t smem = static_cast<size_t>(kWarps) * a.stage_bytes + 8u * a.chunk +
                       4u * a.chunk + 4u * (1u << a.bits);
-  auto kernel = probe_count_kernel<kFilter, kPerRow, kHalo>;
+  auto kernel = probe_count_kernel<kFilter, kPerRow, kHalo, kEmit>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;

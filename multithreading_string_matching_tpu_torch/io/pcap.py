@@ -10,6 +10,11 @@ monitor's ingest) and :func:`slice_pcap` cuts packet ranges out of one.
 Only the classic container is ported so far; a pcapng file raises
 ``NotImplementedError``.  Compressed captures (gzip/bzip2/xz, detected by
 content magic) decompress transparently.
+
+The writers re-emit selected packets verbatim as classic pcap:
+:func:`write_pcap` in one go, :class:`PcapWriter` chunk by chunk (the
+streamed dump), and :func:`concat_pcaps` merges rotated captures into one
+corpus with packets numbered in input order.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from __future__ import annotations
 import os
 import struct
 from dataclasses import dataclass
-from typing import BinaryIO, Iterator
+from typing import BinaryIO, Iterator, Union
 
 import numpy as np
 
@@ -345,6 +350,159 @@ def classic_global_header(
     """The 24-byte classic-pcap global header."""
     magic = MAGIC_NSEC_LE if nanos else MAGIC_USEC_LE
     return struct.pack("<IHHiIII", magic, 2, 4, 0, 0, snaplen, linktype)
+
+
+def _serialize_records(pcap: PcapFile, idx: np.ndarray) -> np.ndarray:
+    """The selected packets as classic-pcap record bytes: one output
+    buffer, headers filled vectorized, each record's captured bytes copied
+    as one slice."""
+    if idx.size and (idx.min() < 0 or idx.max() >= pcap.num_packets):
+        raise ValueError(
+            f"packet index out of range (capture has {pcap.num_packets})"
+        )
+    secs = pcap.ts_sec[idx]
+    fracs = pcap.ts_frac[idx]
+    caps = pcap.caplens[idx]
+    origs = pcap.origlens[idx]
+    for name, arr in (("ts_sec", secs), ("ts_frac", fracs),
+                      ("caplen", caps), ("origlen", origs)):
+        if arr.size and (arr.min() < 0 or arr.max() > 0xFFFFFFFF):
+            raise ValueError(f"{name} not representable as a pcap u32 field")
+    out_sizes = 16 + caps
+    rec_starts = np.concatenate(([0], np.cumsum(out_sizes)[:-1]))
+    out = np.zeros(int(out_sizes.sum()), dtype=np.uint8)
+    hdr = np.empty((idx.size, 4), dtype="<u4")
+    hdr[:, 0] = secs
+    hdr[:, 1] = fracs
+    hdr[:, 2] = caps
+    hdr[:, 3] = origs
+    hdr_bytes = hdr.view(np.uint8).reshape(idx.size, 16)
+    for k in range(idx.size):
+        rs = int(rec_starts[k])
+        out[rs : rs + 16] = hdr_bytes[k]
+        src = int(pcap.offsets[idx[k]])
+        n = int(caps[k])
+        out[rs + 16 : rs + 16 + n] = pcap.buf[src : src + n]
+    return out
+
+
+class PcapWriter:
+    """Incremental classic-pcap writer (the streamed counterpart of
+    :func:`write_pcap`).
+
+    The global header is written from the first chunk's metadata, even
+    when that chunk selects no packet, so the header follows the capture
+    and not a guess; later chunks must agree on linktype and timestamp
+    resolution (a classic pcap has one of each).  The constructor's
+    ``linktype``/``snaplen``/``nanos`` are used only when the stream ends
+    before any chunk arrives.  A ``.gz``/``.bz2``/``.xz`` suffix compresses
+    the output; the readers accept the result.  A context manager.
+    """
+
+    def __init__(
+        self, path: Union[str, os.PathLike], *,
+        linktype: int = LINKTYPE_ETHERNET, snaplen: int = 65535,
+        nanos: bool = False,
+    ):
+        suffix = str(path).lower()
+        if suffix.endswith(".gz"):
+            import gzip
+
+            self._f = gzip.open(path, "wb")
+        elif suffix.endswith(".bz2"):
+            import bz2
+
+            self._f = bz2.open(path, "wb")
+        elif suffix.endswith(".xz"):
+            import lzma
+
+            self._f = lzma.open(path, "wb")
+        else:
+            self._f = open(path, "wb")
+        self._meta = None  # (linktype, nanos)
+        self._fallback = (linktype, snaplen, nanos)
+        self.packets_written = 0
+
+    def write(self, pcap: PcapFile, indices=None) -> int:
+        """Append the packets ``indices`` (all by default; a boolean mask
+        of one entry per packet is taken as a selection) of ``pcap``."""
+        if indices is None:
+            idx = np.arange(pcap.num_packets, dtype=np.int64)
+        else:
+            idx = np.asarray(indices).ravel()
+            if idx.dtype == bool:
+                if idx.size != pcap.num_packets:
+                    raise ValueError(
+                        f"boolean mask has {idx.size} entries for a "
+                        f"{pcap.num_packets}-packet capture"
+                    )
+                idx = np.flatnonzero(idx)
+            idx = idx.astype(np.int64)
+        if self._meta is None:
+            self._meta = (pcap.linktype, pcap.nanos)
+            self._f.write(
+                classic_global_header(pcap.linktype, pcap.snaplen, pcap.nanos)
+            )
+        elif self._meta != (pcap.linktype, pcap.nanos):
+            raise ValueError(
+                f"chunk metadata {(pcap.linktype, pcap.nanos)} does not match "
+                f"the stream's (linktype, nanos)={self._meta}"
+            )
+        self._f.write(_serialize_records(pcap, idx).tobytes())
+        self.packets_written += int(idx.size)
+        return int(idx.size)
+
+    def close(self) -> None:
+        if not self._f.closed:
+            if self._meta is None:
+                # No chunk arrived: still a valid, empty capture.
+                lt, sl, ns = self._fallback
+                self._f.write(classic_global_header(lt, sl, ns))
+            self._f.close()
+
+    def __enter__(self) -> "PcapWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def write_pcap(path: Union[str, os.PathLike], pcap: PcapFile, indices=None) -> int:
+    """Write the packets ``indices`` of a parsed capture (all by default)
+    as a classic pcap: original record bytes, timestamps, snaplen and
+    linktype; the resolution follows ``pcap.nanos``.  Returns the number
+    of packets written."""
+    with PcapWriter(path) as w:
+        return w.write(pcap, indices)
+
+
+def concat_pcaps(pcaps) -> PcapFile:
+    """Parsed captures as one, packets in input order (rotated capture
+    files scanned as one corpus, numbered globally).  Linktype and
+    timestamp resolution must agree; snaplen becomes the maximum."""
+    pcaps = list(pcaps)
+    if not pcaps:
+        raise ValueError("concat_pcaps needs at least one capture")
+    if len(pcaps) == 1:
+        return pcaps[0]
+    meta = {(p.linktype, p.nanos) for p in pcaps}
+    if len(meta) > 1:
+        raise ValueError(
+            f"captures disagree on (linktype, nanos): {sorted(meta)}"
+        )
+    bufs = [p.buf for p in pcaps]
+    base = np.cumsum([0] + [b.shape[0] for b in bufs[:-1]])
+    return PcapFile(
+        buf=np.concatenate(bufs),
+        offsets=np.concatenate([p.offsets + off for p, off in zip(pcaps, base)]),
+        caplens=np.concatenate([p.caplens for p in pcaps]),
+        origlens=np.concatenate([p.origlens for p in pcaps]),
+        ts_sec=np.concatenate([p.ts_sec for p in pcaps]),
+        ts_frac=np.concatenate([p.ts_frac for p in pcaps]),
+        linktype=pcaps[0].linktype,
+        snaplen=max(p.snaplen for p in pcaps),
+        nanos=pcaps[0].nanos,
+    )
 
 
 def iter_pcap(

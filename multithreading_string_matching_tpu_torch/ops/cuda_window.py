@@ -5,11 +5,15 @@ The CUDA kernels in ``csrc/window_count.cu`` replace the TPU kernel
 ``_make_kernel`` in its totals form (``_one_tile``, and ``_one_tile_repeated``
 through the totals kernel's repeats grid axis) and its per-row form
 (``_one_tile_rows``), and ``_make_halo_kernel`` (``_halo_run``, the flow
-stream's scan rounds).  The library is built with ``nvcc`` from the
-checkout on first use (ops/_build.py) and bound with ctypes.
+stream's scan rounds).  Their emit mode, :func:`window_find`, finds every
+match as a ``(row, start, pattern)`` triple, where the JAX package builds an
+XLA bitmap and takes its nonzeros on the host (``ops/window.py``
+``_window_bitmap_group`` + ``find_matches``).  The library is built with
+``nvcc`` from the checkout on first use (ops/_build.py) and bound with
+ctypes.
 
-The wrappers :func:`window_count_totals`, :func:`window_count_rows` and
-:func:`window_count_halo` take the plain version (ops/window.py) for
+The wrappers :func:`window_count_totals`, :func:`window_count_rows`,
+:func:`window_count_halo` and :func:`window_find` take the plain version (ops/window.py) for
 tensors on the CPU and launch the kernel for tensors on a CUDA device; on a
 CUDA tensor they launch or raise, never fall back.  ``LAUNCHES`` counts
 kernel launches by name (a totals launch with ``reps > 1`` counts as
@@ -36,6 +40,7 @@ from multithreading_string_matching_tpu_torch.ops.window import (
     WindowProgram,
     window_count,
     window_count_halo_plain,
+    window_find_plain,
 )
 
 SOURCES = [CSRC_DIR / "window_count.cu"]
@@ -47,7 +52,7 @@ MAX_PROBE_MASKS = 8
 # a wrapper launches its kernel.
 LAUNCHES: Dict[str, int] = {
     "window_count_totals": 0, "window_count_rows": 0, "window_count_totals_repeated": 0,
-    "window_count_halo": 0,
+    "window_count_halo": 0, "window_find": 0,
 }
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
@@ -60,6 +65,9 @@ LIBRARY = KernelLibrary("msm_window_count", SOURCES, {
     "msm_window_count_halo": [ctypes.c_void_p] * 7 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p],
+    # payload, lengths, words, masks, lens, cursor, cap, out, n, L, U, K, device, stream
+    "msm_window_find": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p] + _ARGS[6:]
+                       + [ctypes.c_int, ctypes.c_void_p],
     # key, mask index, patterns, out slot (no device work)
     "msm_probe_bucket": [ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
                          ctypes.POINTER(ctypes.c_int)],
@@ -222,6 +230,43 @@ def window_count_halo(x, eff, ms, words, masks, lens, min_end: int) -> torch.Ten
     return out
 
 
+def window_find(payload, lengths, words, masks, lens) -> torch.Tensor:
+    """Every match of one ``uint8[n, L]`` tile as int64[M, 3] ``(row, start,
+    unique pattern)`` triples, sorted by row, then start, then pattern.
+
+    On the card: ``window_count_totals`` over the tile gives the exact M
+    (one host sync), the emit launch writes the triples into an [M, 3]
+    buffer through an atomic cursor, and ``RuntimeError`` is raised unless
+    the cursor ends at M (the two modes disagree).  The atomics leave the
+    triples in no fixed order; a sort on the key ``(row * L + start) * U +
+    u`` makes the result deterministic.  Tiles of ``n * L >= 2^31`` are
+    refused (rows and starts are int32 in the kernel)."""
+    if device_kind(payload) == "cpu":
+        return window_find_plain(words, masks, lens, payload, lengths)
+    _check(payload, lengths, words, masks, lens)
+    check_totals_bound(payload, 1)
+    n, L = payload.shape
+    U, K = words.shape
+    dev = payload.device
+    if n == 0 or L == 0 or U == 0:
+        return torch.zeros((0, 3), dtype=torch.int64, device=dev)
+    m = int(window_count_totals(payload, lengths, words, masks, lens).sum(dtype=torch.int64))
+    out = torch.empty((m, 3), dtype=torch.int32, device=dev)
+    cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+    LIBRARY.call("msm_window_find", payload.data_ptr(), lengths.data_ptr(), words.data_ptr(),
+                 masks.data_ptr(), lens.data_ptr(), cursor.data_ptr(), m, out.data_ptr(),
+                 n, L, U, K, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["window_find"] += 1
+    found = int(cursor.item())
+    if found != m:
+        raise RuntimeError(
+            f"window_find emitted {found} matches where window_count_totals counted {m} "
+            f"on a {n} x {L} tile"
+        )
+    t = out.long()
+    return t[torch.argsort((t[:, 0] * L + t[:, 1]) * U + t[:, 2])]
+
+
 class TileCountSurface:
     """The tile-count surface shared by the window and the table matchers
     (the counterpart of the JAX package's ``TileCountSurface``).
@@ -309,6 +354,11 @@ class CudaWindowMatcher(TileCountSurface):
 
     def _copy_to(self, device) -> "CudaWindowMatcher":
         return CudaWindowMatcher(self.wp, device)
+
+    def find_tile(self, p, l) -> torch.Tensor:
+        """:func:`window_find` over one staged tile with this program's
+        tables."""
+        return window_find(p, l, self.words, self.masks, self.lens)
 
     # -- flow-halo rounds -------------------------------------------------
 

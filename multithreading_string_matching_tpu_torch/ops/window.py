@@ -13,6 +13,9 @@ with no carried state::
 :func:`window_count` is that algebra in plain PyTorch on any device.  It is
 the port's ``'window'`` engine, the CPU path of the kernel wrappers
 (ops/cuda_window.py), and what the CUDA kernels are held against on the card.
+:func:`find_matches_plain` reduces the same hit bitmap to its nonzeros,
+``(row, start, unique pattern)`` triples: match attribution, and the plain
+version of the ``window_find`` kernel.
 
 Streaming adds two masks: ``min_end`` counts a match only where its last
 byte lies at or past that column, and ``min_start`` only where it starts at
@@ -133,6 +136,31 @@ def _word_views(payloads: torch.Tensor, K: int) -> torch.Tensor:
     )
 
 
+def _bitmaps(words, masks, lens, payloads, lengths):
+    """``(bitmap, lens int64[U])``: ``bitmap(g0, g1)`` is bool[g1 - g0, N, L],
+    pattern g0 + g matching at row n, position i (word chain and fit).
+    Counting and match attribution both reduce from it."""
+    n, L = payloads.shape
+    K = words.shape[1]
+    dev = payloads.device
+    w32 = _word_views(payloads, K)
+    pw = words.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
+    pm = masks.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
+    pl = lens.to(device=dev, dtype=torch.int64)
+    ln = lengths.to(device=dev, dtype=torch.int64)
+    pos = torch.arange(L, dtype=torch.int64, device=dev)
+
+    def bitmap(g0: int, g1: int) -> torch.Tensor:
+        acc = None
+        for k in range(K):
+            wk = w32[:, 4 * k : 4 * k + L]                           # [N, L]
+            hit = (wk[None] & pm[g0:g1, k, None, None]) == pw[g0:g1, k, None, None]
+            acc = hit if acc is None else acc & hit
+        return acc & (pos[None, None, :] + pl[g0:g1, None, None] <= ln[None, :, None])
+
+    return bitmap, pl
+
+
 def window_count(
     words: torch.Tensor,
     masks: torch.Tensor,
@@ -159,11 +187,7 @@ def window_count(
     if n == 0 or U == 0:
         shape = (n, U) if per_packet else (U,)
         return torch.zeros(shape, dtype=torch.int32, device=dev)
-    w32 = _word_views(payloads, K)
-    pw = words.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
-    pm = masks.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
-    pl = lens.to(device=dev, dtype=torch.int64)
-    ln = lengths.to(device=dev, dtype=torch.int64)
+    bitmap, pl = _bitmaps(words, masks, lens, payloads, lengths)
     pos = torch.arange(L, dtype=torch.int64, device=dev)
     ms = None
     if not (isinstance(min_start, int) and min_start == 0):
@@ -171,13 +195,8 @@ def window_count(
     outs = []
     for g0 in range(0, U, GROUP):
         g1 = min(g0 + GROUP, U)
-        acc = None
-        for k in range(K):
-            wk = w32[:, 4 * k : 4 * k + L]                           # [N, L]
-            hit = (wk[None] & pm[g0:g1, k, None, None]) == pw[g0:g1, k, None, None]
-            acc = hit if acc is None else acc & hit
+        acc = bitmap(g0, g1)
         end = pos[None, None, :] + pl[g0:g1, None, None]             # i + m
-        acc = acc & (end <= ln[None, :, None])
         if min_end:
             acc = acc & (end - 1 >= min_end)
         if ms is not None:
@@ -187,6 +206,40 @@ def window_count(
         else:
             outs.append(acc.sum(dim=(1, 2), dtype=torch.int32))       # [g]
     return torch.cat(outs, dim=-1)
+
+
+def window_find_plain(words, masks, lens, payloads, lengths, *, group: int = GROUP
+                      ) -> torch.Tensor:
+    """Every match as int64[M, 3] ``(row, start, unique pattern)`` triples on
+    the payloads' device, sorted by row, then start, then pattern: the
+    nonzeros of the window bitmap, one group of ``group`` patterns at a
+    time.  Tables and tile as :func:`window_count` takes them."""
+    n, L = payloads.shape
+    U = words.shape[0]
+    dev = payloads.device
+    if n == 0 or L == 0 or U == 0:
+        return torch.zeros((0, 3), dtype=torch.int64, device=dev)
+    bitmap, _ = _bitmaps(words, masks, lens, payloads, lengths)
+    parts = []
+    for g0 in range(0, U, group):
+        g, r, i = torch.nonzero(bitmap(g0, min(g0 + group, U)), as_tuple=True)
+        parts.append(torch.stack([r, i, g + g0], dim=1))
+    out = torch.cat(parts)
+    return out[torch.argsort((out[:, 0] * L + out[:, 1]) * U + out[:, 2])]
+
+
+def find_matches_plain(wp: WindowProgram, payloads, lengths, group: int = GROUP
+                       ) -> np.ndarray:
+    """Match offsets: int64[M, 3] rows of ``(row, start, unique_pattern)``,
+    sorted by (row, start, pattern) as the JAX package's ``find_matches``
+    returns them; ``wp.dup_map`` maps pattern-file indices to column 2.
+    Arrays run on the CPU, tensors on their device."""
+    if not torch.is_tensor(payloads):
+        payloads = torch.from_numpy(np.ascontiguousarray(payloads, np.uint8))
+    dev = payloads.device
+    lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
+    out = window_find_plain(*wp.tables(dev), payloads, lengths, group=group)
+    return out.cpu().numpy()
 
 
 def count_matches_window(

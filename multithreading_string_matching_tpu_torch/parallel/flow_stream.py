@@ -26,9 +26,14 @@ and drain to host int64 before they can wrap.
 ``parallel/mesh.count_flow_round_sharded``; the chunk loop stays on the
 matcher's device, as in the JAX package.
 
+``collect_offsets=True`` adds a find pass before each round
+(``Matcher.find_matches`` over ``[tail | new bytes]`` rows, the
+``window_find`` kernel on the card) whose kept triples, drained by
+:meth:`FlowStreamMatcher.drain_offsets`, bincount to exactly the round's
+counts: ``(flow key, offset in the reassembled stream, unique pattern)``.
+
 Not yet ported (ROADMAP): ``engine="ac"`` (``ops/scan.py``), sharded or
-not, ``collect_offsets=True`` (``find_matches``) and ``save``/``load``
-(``parallel/stream.py``).
+not, and ``save``/``load`` (``parallel/stream.py``).
 """
 
 from __future__ import annotations
@@ -86,18 +91,18 @@ class FlowStreamMatcher:
             raise ValueError("fin_evict=True applies to TCP flows only")
         if engine not in ("ac", "window"):
             raise ValueError(f"unknown flow-stream engine {engine!r}: expected ac or window")
+        if collect_offsets and engine != "window":
+            raise ValueError(
+                "collect_offsets=True needs engine='window' (the find "
+                "pass reads the per-flow byte tail)"
+            )
         if engine == "ac":
             raise NotImplementedError(
                 "flow-stream engine 'ac' is not yet ported to the torch package "
-                "(ROADMAP Queue 1 item 6: ops/scan.py); use engine='window'"
+                "(ROADMAP Queue 1 item 4: ops/scan.py); use engine='window'"
             )
         if mesh is not None and not sharded:
             raise ValueError("mesh= is only meaningful with sharded=True")
-        if collect_offsets:
-            raise NotImplementedError(
-                "collect_offsets is not yet ported to the torch package "
-                "(ROADMAP next modules: find_matches)"
-            )
         if max_flows is not None and max_flows < 1:
             raise ValueError("max_flows must be >= 1")
         # reorder=True: pending segments carry their TCP seq, and each round
@@ -152,6 +157,10 @@ class FlowStreamMatcher:
         self._last_active: dict = {} # key -> round of the last fed bytes
         self._closing: set = set()   # keys with a FIN or RST seen
         self.flows_evicted = 0
+        # The find pass is host-driven, so it composes with sharded rounds.
+        self.collect_offsets = collect_offsets
+        self._flow_base: dict = {}   # key -> stream bytes already scanned
+        self._offsets: list = []     # undrained (key, offset, unique) hits
 
     @property
     def flows_seen(self) -> int:
@@ -259,6 +268,61 @@ class FlowStreamMatcher:
             by_age = sorted(self._states, key=lambda k: self._last_active.get(k, -1))
             drop(by_age[: len(self._states) - self.max_flows])
 
+    # Find-pass column stride (new bytes per slice): bounds the find pass's
+    # tile for skewed rounds; H context columns overlap between slices.
+    # Class-level so tests can lower it.
+    OFFSET_CHUNK = 1 << 20
+
+    def _collect_round_offsets(self, flows) -> None:
+        """One find pass over ``[tail | new bytes]`` rows, keeping matches
+        whose end falls in the new bytes and whose start is at or past the
+        fabricated zeros: the halo count's own (min_start, min_end) rule,
+        so the kept triples bincount to exactly this round's counts.
+        Offsets are positions in the flow's reassembled stream (``base +
+        row_start - H``)."""
+        if not flows:
+            return
+        wp = self.matcher.window
+        H = max(int(wp.max_len) - 1, 1)
+        # The stride covers the halo: past the first slice min_start is 0,
+        # which holds while every slice's context lies past the zeros.
+        S = max(self.OFFSET_CHUNK, H)
+        ulens = np.array([len(p) for p in wp.unique_patterns], np.int64)
+        rows_src = []
+        fills = np.zeros(len(flows), np.int64)
+        for i, k in enumerate(flows):
+            tail, fl = self._states.get(k, (b"", 0))
+            # Stored tails hold exactly ``fl`` real bytes; zeros pad the
+            # context to H columns (min_start drops starts inside them).
+            rows_src.append(b"\x00" * (H - fl) + bytes(tail) + bytes(self._pending[k]))
+            fills[i] = fl
+        longest_new = max(len(r) - H for r in rows_src)
+        for c in range(0, longest_new, S):
+            sl = [r[c : c + H + S] for r in rows_src]
+            lens = np.array([len(x) for x in sl], np.int32)
+            mat = np.zeros((len(sl), int(lens.max())), np.uint8)
+            for i, x in enumerate(sl):
+                mat[i, : len(x)] = np.frombuffer(x, np.uint8)
+            rows = self.matcher.find_matches(mat, lens)
+            for fi, st, u in rows.tolist():
+                min_start = (H - int(fills[fi])) if c == 0 else 0
+                if st < min_start or st + int(ulens[u]) <= H:
+                    continue
+                base = self._flow_base.get(flows[fi], 0)
+                self._offsets.append((flows[fi], base + c + st - H, u))
+        for k in flows:
+            self._flow_base[k] = self._flow_base.get(k, 0) + len(self._pending[k])
+
+    def drain_offsets(self):
+        """Return (and clear) the accumulated ``(key_bytes, stream_offset,
+        unique_pattern_idx)`` triples of ``collect_offsets=True``.  Offsets
+        index the flow's reassembled stream; render keys with
+        :func:`io.flows.key_tuple_bytes`; the pattern bytes are
+        ``matcher.window.unique_patterns``."""
+        out = self._offsets
+        self._offsets = []
+        return out
+
     def _use_halo_kernel(self) -> bool:
         """Rounds take the halo kernel when the matcher's engine resolves to
         ``pallas`` (its plain version on a CPU matcher); the ``window``
@@ -283,6 +347,10 @@ class FlowStreamMatcher:
                 self._pending.clear()
                 return
         flows = [k for k, b in self._pending.items() if b]
+        if self.collect_offsets:
+            # Before any tail or pending change: the find pass reads the
+            # tails from before the round next to the pending bytes.
+            self._collect_round_offsets(flows)
         F = _pow2(len(flows), self.min_lanes)
         # Sharded rounds split the lanes over the mesh: a device-count
         # multiple (a non-pow2 min_lanes or device count would not divide).
@@ -457,13 +525,13 @@ class FlowStreamMatcher:
     def save(self, path) -> str:
         raise NotImplementedError(
             "flow-stream checkpoints are not yet ported to the torch package "
-            "(ROADMAP Queue 1 item 9: parallel/stream.py)"
+            "(ROADMAP Queue 1 item 5: parallel/stream.py)"
         )
 
     def load(self, path) -> None:
         raise NotImplementedError(
             "flow-stream checkpoints are not yet ported to the torch package "
-            "(ROADMAP Queue 1 item 9: parallel/stream.py)"
+            "(ROADMAP Queue 1 item 5: parallel/stream.py)"
         )
 
     def reload(self, matcher) -> np.ndarray:
@@ -471,10 +539,18 @@ class FlowStreamMatcher:
 
         Scans everything pending under the current rules, returns their
         final counts, and re-arms for ``matcher``: counts reset; tracked
-        flows, eviction bookkeeping and reorder coverage persist.  Each
-        flow's tail is trimmed to the new ``max_len - 1``, so a match across
-        the swap is found when it fits the shorter of the two halos."""
+        flows, eviction bookkeeping, reorder coverage and stream bases
+        persist.  Each flow's tail is trimmed to the new ``max_len - 1``, so
+        a match across the swap is found when it fits the shorter of the
+        two halos.  With ``collect_offsets``, undrained triples index the
+        old pattern set: reload raises after its flush until they are
+        drained (the stream stays usable)."""
         self.flush()
+        if self.collect_offsets and self._offsets:
+            raise ValueError(
+                "undrained offsets from the old rule set: call "
+                "drain_offsets() before reload()"
+            )
         final = self.counts()
         self.matcher = matcher
         self._counts = np.zeros(len(matcher.patterns), np.int64)
@@ -489,6 +565,8 @@ class FlowStreamMatcher:
             self._states.pop(k, None)
             self._flow_reorder.pop(k, None)
             self._last_active.pop(k, None)
+            # A flow that comes back restarts at stream offset 0.
+            self._flow_base.pop(k, None)
             b = self._pending.pop(k, None)
             if b:
                 self._pending_bytes -= (

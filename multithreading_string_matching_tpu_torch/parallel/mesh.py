@@ -15,7 +15,7 @@ CPU, as the JAX package's tests run on 8 virtual CPU devices.
 Engines: ``'pallas'`` runs the kernels (their plain versions for CPU
 shards), ``'window'`` the plain window count on each shard's device.  The
 AC engine, and with it :func:`count_chunk_sharded`, is not yet ported
-(ROADMAP Queue 1 item 6, ``ops/scan.py``).
+(ROADMAP Queue 1 item 4, ``ops/scan.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ PACKET_AXIS = "packets"
 # per pattern).  Module-level so tests can lower it.
 SUMMARY_MAX_POSITIONS = 2**31
 
-_AC_REFUSAL = ("is not yet ported to the torch package (ROADMAP Queue 1 item 6: "
+_AC_REFUSAL = ("is not yet ported to the torch package (ROADMAP Queue 1 item 4: "
                "ops/scan.py)")
 
 

@@ -1,11 +1,11 @@
 """Streamed packet counting: the batched task pipeline and the packed-tile
 serving path.
 
-Counterpart of ``multithreading_string_matching_tpu/parallel/pipeline.py``
-(its counting half; ``dump_matches_streamed`` and ``scan_pcap_streamed``'s
-``dump_path``/``offsets`` come with match attribution, ROADMAP Queue 1
-item 3).  Names, signatures, defaults, error messages and ``stats`` keys
-are the JAX package's.
+Counterpart of ``multithreading_string_matching_tpu/parallel/pipeline.py``:
+the counting paths and the attribution half (``scan_pcap_streamed``'s
+``dump_path``/``offsets`` and ``dump_matches_streamed``).  Names,
+signatures, defaults, error messages and ``stats`` keys are the JAX
+package's.
 
 The host is the producer (streamed ingest, decode, packing), the device the
 consumer.  JAX overlaps them through asynchronous dispatch and a fresh
@@ -29,7 +29,12 @@ import numpy as np
 import torch
 
 from multithreading_string_matching_tpu_torch.io.decode import extract_payloads
-from multithreading_string_matching_tpu_torch.io.pcap import PcapFile, iter_pcap, slice_pcap
+from multithreading_string_matching_tpu_torch.io.pcap import (
+    PcapFile,
+    PcapWriter,
+    iter_pcap,
+    slice_pcap,
+)
 from multithreading_string_matching_tpu_torch.ops.bucketing import pack_rows
 from multithreading_string_matching_tpu_torch.ops.window import window_count
 from multithreading_string_matching_tpu_torch.parallel.stager import TileStager
@@ -41,9 +46,6 @@ DEFAULT_BATCH = 100  # openmp_task.c:113
 # int32 can never wrap between drains (2x margin).  Module-level so overflow
 # tests can lower it without scanning 2 GiB.
 DRAIN_POSITIONS = 2**30
-
-_ATTRIBUTION_REFUSAL = ("is not yet ported to the torch package (ROADMAP Queue 1 item 3: "
-                        "match attribution)")
 
 
 def _iter_pcap_paths(pcap_path, batch_packets):
@@ -465,29 +467,38 @@ def scan_pcap_streamed(
     shard_axis: str = "packets",
     host_workers: int = 0,
 ):
-    """Bounded-memory per-row scan, counts only: the NUL-set path of
-    :func:`count_pcap_streamed` (packing is inexact for such sets).
+    """Bounded-memory per-row scan with per-packet attribution: counts,
+    and optionally a dump of the matching packets and/or the exact match
+    offsets.  Also the NUL-set path of :func:`count_pcap_streamed`
+    (packing is inexact for such sets).
 
     Each ingest chunk goes through the per-row kernels (``rows`` form,
-    exact fit masks) and is reduced on the device to unique totals.  The
-    unsharded chunk is padded to pow2 rows x pow2 width (a handful of
-    shapes), staged through a :class:`TileStager` and counted in slices
-    of fewer than ``mesh.SUMMARY_MAX_POSITIONS`` positions; its totals
-    accumulate in int64 on the device, fetched once at the end.
-    ``sharded=True`` shards each chunk's rows over the mesh
+    exact fit masks) and is reduced on the device to unique totals and
+    per-row hit flags.  The unsharded chunk is padded to pow2 rows x pow2
+    width (a handful of shapes), staged through a :class:`TileStager` and
+    counted in slices of fewer than ``mesh.SUMMARY_MAX_POSITIONS``
+    positions; its totals accumulate in int64 on the device, fetched once
+    at the end, and its hit flags come back only when a dump or offsets
+    need them.  ``sharded=True`` shards each chunk's rows over the mesh
     (``mesh.count_rows_summary``), or the rule set on the pattern axis
-    (``pattern_shard.count_rows_summary_pattern_sharded``).  A ``window``
-    matcher runs ``count_batch(per_packet=True)`` per chunk.
+    (``pattern_shard.count_rows_summary_pattern_sharded``); ac/kmp remap
+    to the window family there, as in the JAX package.
 
-    ``dump_path=`` and ``offsets=True`` are not yet ported (ROADMAP
-    Queue 1 item 3) and raise ``NotImplementedError``.  Returns the counts;
-    ``stats`` (if given) receives the engine and packet/byte totals.
+    ``dump_path`` appends the chunk's hit packets to a classic pcap
+    (:class:`~..io.pcap.PcapWriter`, header locked to the capture even when
+    nothing matches).  ``offsets=True`` collects ``(packet, start,
+    unique_pattern)`` triples with the original capture's packet numbers,
+    global across chunks and files, from the flagged rows only
+    (``Matcher.find_matches``).  A ``window`` matcher runs one
+    ``find_matches`` pass per chunk for offsets (the triples are the
+    counts), else ``count_batch(per_packet=True)``.
+
+    Returns ``counts`` or ``(counts, offsets)`` with ``offsets=True``;
+    ``stats`` (if given) receives the engine, packet/byte totals and, when
+    dumping, ``dumped_packets``.
     """
     if mesh is not None and not sharded:
         raise ValueError("mesh= is only meaningful with sharded=True")
-    if dump_path is not None or offsets:
-        raise NotImplementedError(
-            f"scan_pcap_streamed's dump_path= and offsets= {_ATTRIBUTION_REFUSAL}")
     from multithreading_string_matching_tpu_torch.parallel.mesh import (
         count_rows_summary,
         make_mesh,
@@ -536,7 +547,8 @@ def scan_pcap_streamed(
             # ONE quantization rule for both flavors: pow2 rows x pow2
             # width (padding rows are length-0, zero bytes), so a long
             # stream reuses a handful of shapes.  The per-row counts reduce
-            # on the device (count_*_summary): only unique totals leave it.
+            # on the device (count_*_summary): only unique totals and the
+            # per-row hit flags leave it.  Returns (totals, hits[nq]).
             n, L = payloads.shape
             lq = max(128, _next_pow2(L))
             nq = -(-max(n_dev, _next_pow2(n)) // n_dev) * n_dev
@@ -550,11 +562,11 @@ def scan_pcap_streamed(
 
                     return count_rows_summary_pattern_sharded(
                         matcher, payloads, lengths, mesh, engine=row_engine
-                    )[0]
+                    )
                 # count_rows_summary slices internally for the int32 bound.
                 return count_rows_summary(
                     matcher, payloads, lengths, mesh, engine=row_engine
-                )[0]
+                )
             hb, hf = stager.host(nq, lq)
             hb[:n, :L] = matcher._maybe_fold(payloads)
             hb[:n, L:] = 0
@@ -570,49 +582,120 @@ def scan_pcap_streamed(
                 while step > 1 and step * lq >= mesh_mod.SUMMARY_MAX_POSITIONS:
                     step //= 2
                 tot = torch.zeros(num_unique, dtype=torch.int64, device=p.device)
+                hits = []
                 for s in range(0, nq, step):
-                    tot += matcher.kernels.count_tile_summary(p[s : s + step],
-                                                              l[s : s + step])[0]
-                return tot
+                    t, h = matcher.kernels.count_tile_summary(p[s : s + step], l[s : s + step])
+                    tot += t
+                    hits.append(h)
+                return tot, torch.cat(hits)
 
             return stager.dispatch(summary)
 
     if stats is not None and row_fn is None:
-        stats["engine_resolved"] = matcher._resolve_engine(None)
+        # Only the offsets branch is window-native (find_matches); the rest
+        # runs count_batch with the matcher's resolved engine.
+        stats["engine_resolved"] = (
+            "window" if offsets else matcher._resolve_engine(None)
+        )
     if stats is not None and host_workers:
         stats["host_workers"] = host_workers
     total = None
     n_packets = n_valid = n_bytes = 0
-    for _chunk, batch in _iter_extracted(
-        pcap_path, mode, batch_packets, strict, vlan, ipv6, host_workers
-    ):
-        n_packets += batch.num_packets
-        n_valid += int(batch.valid.sum())
-        n_bytes += batch.total_payload_bytes
-        if not batch.valid.any():
-            continue
-        if row_fn is not None:
-            # Unique totals (host int64 sharded, device int64 local),
-            # expanded through dup_map once at the end.
-            uniq_tot = row_fn(batch.payloads, batch.lengths)
-            total = uniq_tot if total is None else total + uniq_tot
-        else:
-            per_row = np.asarray(matcher.count_batch(batch, per_packet=True))
-            total = per_row.sum(axis=0, dtype=np.int64) + (
-                0 if total is None else total
-            )
+    found = [] if offsets else None
+    w = PcapWriter(dump_path) if dump_path is not None else None
+    try:
+        for chunk, batch in _iter_extracted(
+            pcap_path, mode, batch_packets, strict, vlan, ipv6, host_workers
+        ):
+            packet_base = n_packets
+            n_packets += batch.num_packets
+            n_valid += int(batch.valid.sum())
+            n_bytes += batch.total_payload_bytes
+            valid_idx = np.flatnonzero(batch.valid)
+            if valid_idx.size == 0:
+                if w is not None:
+                    # Lock the dump's header to this capture's metadata.
+                    w.write(chunk, valid_idx)
+                continue
+            if row_fn is not None:
+                # Unique totals (host int64 sharded, device int64 local),
+                # expanded through dup_map once at the end; attribution from
+                # the hit flags, positions from the hit rows only.
+                uniq_tot, hits = row_fn(batch.payloads, batch.lengths)
+                total = uniq_tot if total is None else total + uniq_tot
+                if w is None and found is None:
+                    continue
+                hits = hits.cpu().numpy() if torch.is_tensor(hits) else np.asarray(hits)
+                row_hits = hits[: valid_idx.size]
+                if w is not None:
+                    w.write(chunk, valid_idx[row_hits])
+                if found is not None and row_hits.any():
+                    hit = np.flatnonzero(row_hits)
+                    rows = matcher.find_matches(batch.payloads[hit], batch.lengths[hit])
+                    if rows.size:
+                        rows[:, 0] = packet_base + valid_idx[hit[rows[:, 0]]]
+                        found.append(rows)
+                continue
+            if found is not None:
+                # One scan serves all three outputs: the triples ARE the
+                # counts and the dump selection (rows with any hit).
+                rows = matcher.find_matches(batch.payloads, batch.lengths)
+                total = matcher.counts_from_match_rows(rows) + (0 if total is None else total)
+                if w is not None:
+                    hit_rows = (
+                        np.unique(rows[:, 0]) if rows.size
+                        else np.zeros(0, np.int64)
+                    )
+                    hit_rows = hit_rows[hit_rows < valid_idx.size]
+                    w.write(chunk, valid_idx[hit_rows])
+                if rows.size:
+                    # Original capture packet numbers, global across chunks.
+                    rows[:, 0] = packet_base + valid_idx[rows[:, 0]]
+                    found.append(rows)
+            else:
+                per_row = np.asarray(matcher.count_batch(batch, per_packet=True))
+                total = per_row.sum(axis=0, dtype=np.int64) + (
+                    0 if total is None else total
+                )
+                if w is not None:
+                    row_hits = per_row[: valid_idx.size].sum(axis=1) > 0
+                    w.write(chunk, valid_idx[row_hits])
+    finally:
+        if w is not None:
+            w.close()
     if stats is not None:
         stats.update(
             packets=n_packets, valid_payloads=n_valid, payload_bytes=n_bytes,
         )
+        if w is not None:
+            stats["dumped_packets"] = w.packets_written
     if total is None:
-        return np.zeros(len(matcher.patterns), dtype=np.int32)
-    if row_fn is not None:
-        total = np.asarray(total.cpu() if torch.is_tensor(total) else total, np.int64)
-        total = total[matcher.window.dup_map]
-    if total.size and total.max() > np.iinfo(np.int32).max:
-        return total  # beyond int32: exact int64 (mirror count_pcap_streamed)
-    return total.astype(np.int32)
+        counts = np.zeros(len(matcher.patterns), dtype=np.int32)
+    else:
+        if row_fn is not None:
+            total = np.asarray(total.cpu() if torch.is_tensor(total) else total, np.int64)
+            total = total[matcher.window.dup_map]
+        # Beyond int32: exact int64 (mirror count_pcap_streamed).
+        counts = total if total.size and total.max() > np.iinfo(np.int32).max else (
+            total.astype(np.int32))
+    if offsets:
+        all_rows = (
+            np.concatenate(found, axis=0) if found else np.zeros((0, 3), dtype=np.int64)
+        )
+        return counts, all_rows
+    return counts
+
+
+def dump_matches_streamed(
+    matcher,
+    pcap_path,
+    out_path,
+    mode: str = "udp",
+    **kw,
+) -> np.ndarray:
+    """Bounded-memory scan that re-emits every matching packet
+    (:func:`scan_pcap_streamed` with ``dump_path`` fixed)."""
+    return scan_pcap_streamed(matcher, pcap_path, mode, dump_path=out_path, **kw)
 
 
 def count_pcap_pipelined(

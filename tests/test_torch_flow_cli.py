@@ -1,8 +1,9 @@
 """The torch package's ``match --flows`` and ``match --flows --stream``
 against the JAX package's CLI: counts, flow and packet totals, stream bytes,
 the text report and a SIGHUP rules reload, on the CPU (``MSM_DEVICE=cpu``);
-the options not yet ported exit 1 (and the packet `--stream`, now ported,
-counts what the one-shot match counts).
+the options not yet ported exit 1 (and the packet `--stream` and the flow
+attribution options, now ported, give what the one-shot match and the JAX
+CLI give).
 """
 
 import json
@@ -124,9 +125,10 @@ def test_flows_text_report_equals_jax(capture, capsys, monkeypatch, flags):
 
 
 UNPORTED_CASES = [
-    (["--flows", "--offsets"], "unported"),
-    (["--flows", "--dump-matches", "x.pcap"], "unported"),
-    (["--flows", "--sharded", "--offsets"], "unported"),
+    # Attribution is ported: the same output and dump as the JAX CLI.
+    (["--flows", "--offsets"], "equal to the JAX CLI"),
+    (["--flows", "--dump-matches", "x.pcap"], "equal to the JAX CLI"),
+    (["--flows", "--sharded", "--offsets"], "equal to the JAX CLI"),
     (["--flows", "--stream", "--host-workers", "2"], "unported"),
     # JAX refuses this combination before anything runs; the port now does too.
     (["--flows", "--stream", "--distributed"], "refused like JAX"),
@@ -139,10 +141,21 @@ UNPORTED_CASES = [
 
 @pytest.mark.parametrize("flags, outcome", UNPORTED_CASES,
                          ids=["_".join(x.strip("-") for x in f) for f, _ in UNPORTED_CASES])
-def test_unported_flow_options_exit_1(capture, capsys, monkeypatch, flags, outcome):
+def test_unported_flow_options_exit_1(capture, capsys, monkeypatch, tmp_path, flags, outcome):
     monkeypatch.setenv("MSM_DEVICE", "cpu")
+    monkeypatch.chdir(tmp_path)  # a relative dump path lands here
     argv = ["match", "--pcap", str(capture), "--patterns", str(STANDIN), "--mode", "tcp", *flags]
-    if outcome == "refused like JAX":
+    if outcome == "equal to the JAX CLI":
+        outs = []
+        for main in (pt_main, jax_main):
+            assert main(argv) == 0
+            out = capsys.readouterr().out.splitlines()
+            outs.append(([ln for ln in out if not ln.startswith("Elapsed time = ")],
+                         (tmp_path / "x.pcap").read_bytes() if "x.pcap" in flags else None))
+        assert outs[0] == outs[1] and len(outs[0][0]) > 10
+        if "--offsets" in flags:
+            assert any(ln.startswith("flow ") for ln in outs[0][0])
+    elif outcome == "refused like JAX":
         with pytest.raises(SystemExit) as got:
             pt_main(argv)
         with pytest.raises(SystemExit) as want:

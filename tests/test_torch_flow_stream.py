@@ -298,8 +298,18 @@ def test_unported_options_raise(captures):
         FlowStreamMatcher(m, "tcp")  # engine="ac" is the JAX default
     with pytest.raises(NotImplementedError, match="ops/scan.py"):
         FlowStreamMatcher(m, "tcp", sharded=True)  # sharded AC lanes
-    with pytest.raises(NotImplementedError, match="find_matches"):
-        FlowStreamMatcher(m, "tcp", engine="window", collect_offsets=True)
+    # collect_offsets (once refused here) drains what the JAX package's does;
+    # the AC engine with it is refused with the JAX package's ValueError.
+    pcap_p, pcap_j = read_pcap(captures["v4"]), jax_read(captures["v4"])
+    drained = []
+    for fs_cls, mm, pc, slicer in ((FlowStreamMatcher, m, pcap_p, slice_pcap),
+                                   (JaxFlowStream, JaxMatcher(PATS), pcap_j, jax_slice)):
+        fs = fs_cls(mm, "tcp", engine="window", collect_offsets=True, scan_bytes=64)
+        _feed(fs, pc, 5, slicer)
+        drained.append([(bytes(k), int(o), int(u)) for k, o, u in fs.drain_offsets()])
+        with pytest.raises(ValueError, match="collect_offsets=True needs engine='window'"):
+            fs_cls(mm, "tcp", engine="ac", collect_offsets=True)
+    assert drained[0] == drained[1] and len(drained[0]) > 0
     fs = FlowStreamMatcher(m, "tcp", engine="window")
     for call in (lambda: fs.save("x.npz"), lambda: fs.load("x.npz")):
         with pytest.raises(NotImplementedError, match="parallel/stream.py"):

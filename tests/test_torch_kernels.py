@@ -24,6 +24,7 @@ from multithreading_string_matching_tpu_torch.ops.window import (
     WindowProgram,
     window_count,
     window_count_halo_plain,
+    window_find_plain,
     window_stream_chunk,
 )
 
@@ -693,3 +694,113 @@ def test_mxu_wrapper_refuses_bad_inputs(cuda_device):
         mxu.LIBRARY.call("msm_mxu_count", p.data_ptr(), P.data_ptr(), tgt.data_ptr(),
                          out.data_ptr(), 8, 64, 128, 8, 1, 0,
                          torch.cuda.current_stream().cuda_stream)
+
+
+# -- window_find: the emit mode of the window kernels ---------------------------
+
+FIND_CASES = {
+    **{f"probe-{k}": v for k, v in PROBE_CASES.items()
+       if k in ("one-probe-key-3072", "one-bucket", "four-masks-1-2-3-4-bytes",
+                "nul-inside-keys", "u9000-three-chunks")},
+    **{k: CASES[k] for k in ("dups-width-13", "nul", "longer-than-row", "zero-rows",
+                             "zero-width", "multi-segment", "many-blocks")},
+}
+
+
+@pytest.mark.parametrize("case", sorted(FIND_CASES))
+def test_window_find_equals_plain(cuda_device, case):
+    """The emit launch writes every match once: its sorted triples equal
+    the plain bitmap's nonzeros, and their count equals the totals kernel's
+    (the wrapper raises unless the cursor ends there)."""
+    pats, seed, n, L, alphabet = FIND_CASES[case]
+    pats = pats() if callable(pats) else pats
+    p, ln = _tile(seed, n, L, alphabet, cuda_device,
+                  plant=pats if case.startswith("probe-") else ())
+    words, masks, lens = WindowProgram.build(pats).tables(cuda_device)
+    before = cw.LAUNCHES["window_find"]
+    got = cw.window_find(p, ln, words, masks, lens)
+    want = window_find_plain(words, masks, lens, p, ln)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert got.shape[0] == int(window_count(words, masks, lens, p, ln).sum())
+    assert cw.LAUNCHES["window_find"] == before + (n > 0 and L > 0)
+    if case.startswith("probe-"):
+        assert got.shape[0] > 0
+
+
+@pytest.mark.parametrize("L", [2 * 2048 + 37, 3 * 2048])
+def test_window_find_segment_boundaries(cuda_device, L):
+    """Matches planted across every kSeg = 2,048-start segment boundary of
+    long rows are each found once, at the right start."""
+    pats = [b"abcdefgh", b"xyz", b"hxyza"]
+    rng = np.random.default_rng(L)
+    payloads = rng.integers(ord("0"), ord("9") + 1, size=(6, L)).astype(np.uint8)
+    for r in range(6):
+        for b in range(2048, L, 2048):
+            o = b - 1 - r % 7
+            q = pats[(r + b // 2048) % len(pats)]
+            payloads[r, o : o + len(q)] = np.frombuffer(q, np.uint8)
+    lengths = np.full(6, L, np.int32)
+    lengths[5] = 2048 + 3  # a row that ends inside its second segment
+    p, ln = torch.from_numpy(payloads).to(cuda_device), torch.from_numpy(lengths).to(cuda_device)
+    words, masks, lens = WindowProgram.build(pats).tables(cuda_device)
+    got = cw.window_find(p, ln, words, masks, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, window_find_plain(words, masks, lens, p, ln))
+    starts = got[:, 1].cpu().numpy()
+    assert ((starts < 2048) & (starts + 8 > 2048)).any()
+
+
+def test_window_find_refuses_bad_inputs(cuda_device):
+    words, masks, lens = WindowProgram.build(DUPS).tables(cuda_device)
+    p, ln = _tile(1, 8, 64, b"abc", cuda_device)
+    with pytest.raises(TypeError):
+        cw.window_find(p.long(), ln, words, masks, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        cw.window_find(p[:, ::2], ln, words, masks, lens)
+    with pytest.raises(ValueError):
+        cw.window_find(p, ln[:3], words, masks, lens)
+    cursor = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    out = torch.zeros((4, 3), dtype=torch.int32, device=cuda_device)
+    # The C entry point counts past cap and writes nothing there.
+    cw.LIBRARY.call("msm_window_find", p.data_ptr(), ln.data_ptr(), words.data_ptr(),
+                    masks.data_ptr(), lens.data_ptr(), cursor.data_ptr(), 0, out.data_ptr(),
+                    8, 64, words.shape[0], words.shape[1], 0,
+                    torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert int(cursor) == int(window_count(words, masks, lens, p, ln).sum()) > 4
+    assert not out.any()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cw.LIBRARY.call("msm_window_find", p.data_ptr(), ln.data_ptr(), words.data_ptr(),
+                        masks.data_ptr(), lens.data_ptr(), None, 0, out.data_ptr(),
+                        8, 64, words.shape[0], words.shape[1], 0,
+                        torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.parametrize("pats, nocase", [(load_patterns(STANDIN), False),
+                                          (load_patterns(STANDIN), True),
+                                          (_long_rules(700, 79), False)],
+                         ids=["standin", "standin-nocase", "table-route-700"])
+def test_matcher_find_matches_on_card_equals_cpu(cuda_device, monkeypatch, pats, nocase):
+    """``Matcher.find_matches`` on the card runs window_find whatever the
+    engine routes counts to, in row slices under the position bound."""
+    from multithreading_string_matching_tpu_torch.parallel import mesh as mesh_mod
+
+    rng = np.random.default_rng(80)
+    payloads = rng.integers(0x20, 0x7F, size=(700, 300)).astype(np.uint8)
+    for r in range(700):
+        q = pats[r % len(pats)][:300]
+        o = int(rng.integers(0, 300 - len(q) + 1))
+        payloads[r, o : o + len(q)] = np.frombuffer(q, np.uint8)
+    lengths = rng.integers(0, 301, size=700).astype(np.int32)
+    gpu = Matcher(pats, device=cuda_device, case_insensitive=nocase)
+    cpu = Matcher(pats, device="cpu", case_insensitive=nocase)
+    before = cw.LAUNCHES["window_find"]
+    got = gpu.find_matches(payloads, lengths)
+    assert cw.LAUNCHES["window_find"] == before + 1
+    want = cpu.find_matches(payloads, lengths)
+    assert np.array_equal(got, want) and len(want) > 300
+    assert np.array_equal(gpu.counts_from_match_rows(got), gpu.count(payloads, lengths))
+    monkeypatch.setattr(mesh_mod, "SUMMARY_MAX_POSITIONS", 64 * 300 + 1)
+    assert np.array_equal(gpu.find_matches(payloads, lengths), want)
+    assert cw.LAUNCHES["window_find"] == before + 1 + 11  # ceil(700 / 64) slices

@@ -182,15 +182,27 @@ def test_nul_refuses_sync_dispatch_like_jax(caps):
     assert "sync_dispatch requires the packed-tile path" in str(got.value)
 
 
-def test_guards_and_unported_attribution(caps):
+def test_guards_and_unported_attribution(caps, tmp_path):
+    """The guards, and the attribution forms (once refused here): offsets
+    and the dump equal the JAX package's."""
     m = Matcher(STANDIN, device="cpu")
     with pytest.raises(ValueError, match="mesh= is only meaningful"):
         pp.count_pcap_streamed(m, caps["a"], mesh=make_mesh(["cpu"]))
     with pytest.raises(ValueError, match="unknown shard_axis"):
         pp.count_pcap_streamed(m, caps["a"], sharded=True, shard_axis="rows")
-    for kw in (dict(offsets=True), dict(dump_path=str(caps["a"]) + ".out")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            pp.scan_pcap_streamed(m, caps["a"], **kw)
+    jm = JaxMatcher(STANDIN)
+    for kw in (dict(offsets=True), dict(dump_path="out.pcap")):
+        got_kw = {k: tmp_path / f"pt_{v}" if k == "dump_path" else v for k, v in kw.items()}
+        want_kw = {k: tmp_path / f"jax_{v}" if k == "dump_path" else v for k, v in kw.items()}
+        got = pp.scan_pcap_streamed(m, caps["a"], **got_kw)
+        want = jpp.scan_pcap_streamed(jm, caps["a"], **want_kw)
+        if kw.get("offsets"):
+            assert got[0].tolist() == want[0].tolist()
+            assert np.array_equal(got[1], want[1]) and len(got[1]) > 50
+        else:
+            assert got.tolist() == want.tolist()
+            assert (tmp_path / "pt_out.pcap").read_bytes() == (
+                tmp_path / "jax_out.pcap").read_bytes()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         pp.count_pcap_streamed(m, caps["a"], engine="ac")
 

@@ -177,17 +177,31 @@ def test_guards_exit_like_jax(files, monkeypatch, argv, message):
     assert str(got.value).startswith(message)
 
 
-def test_negative_host_workers_and_unported(files, capsys, monkeypatch):
+def test_negative_host_workers_and_unported(files, capsys, monkeypatch, tmp_path):
+    """Negative worker counts exit like JAX; ``--stream --distributed``
+    stays refused; the attribution options and a repeated ``--pcap`` (once
+    refused here) print what the JAX CLI prints and dump the same bytes."""
     monkeypatch.setenv("MSM_DEVICE", "cpu")
+    monkeypatch.chdir(tmp_path)  # the relative dump path lands here
     base = ["match", "--pcap", str(files["cap"]), "--patterns", str(STANDIN)]
     for argv in (["--host-workers", "-1"], ["--stream", "--host-workers", "-2"]):
         assert pt_main(base + argv) == jax_main(base + argv) == 1
         err = capsys.readouterr().err.splitlines()
         assert err == ["error: host_workers must be >= 0"] * 2
+    assert pt_main(base + ["--stream", "--distributed"]) == 1
+    assert "not yet ported" in capsys.readouterr().err
     for argv in (["--stream", "--offsets"], ["--stream", "--dump-matches", "x.pcap"],
-                 ["--stream", "--distributed"], ["--pcap", str(files["cap2"])]):
-        assert pt_main(base + argv) == 1
-        assert "not yet ported" in capsys.readouterr().err
+                 ["--pcap", str(files["cap2"])]):
+        outs = []
+        for main in (pt_main, jax_main):
+            assert main(base + argv) == 0
+            cap = capsys.readouterr()
+            dumped = (tmp_path / "x.pcap").read_bytes() if "x.pcap" in argv else None
+            outs.append(([ln for ln in cap.out.splitlines()
+                          if not ln.startswith("Elapsed time = ")],
+                         [ln for ln in cap.err.splitlines() if ln.startswith("# wrote")],
+                         dumped))
+        assert outs[0] == outs[1] and len(outs[0][0]) > 10, argv
 
 
 def test_pipeline_modules_import_no_jax(files):

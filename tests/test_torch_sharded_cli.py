@@ -119,12 +119,20 @@ def test_auto_axis_and_flag_errors(files, capsys, monkeypatch):
 @pytest.mark.parametrize("flags", [["--offsets"], ["--dump-matches", "x.pcap"],
                                    ["--flows", "--offsets"]],
                          ids=["offsets", "dump", "flows-offsets"])
-def test_unported_sharded_options_exit_1(files, capsys, monkeypatch, flags):
+def test_unported_sharded_options_exit_1(files, capsys, monkeypatch, tmp_path, flags):
+    """Once refused here: the sharded attribution options now print what
+    the JAX CLI prints, and dump the same bytes."""
     monkeypatch.setenv("MSM_DEVICE", "cpu")
+    monkeypatch.chdir(tmp_path)  # the relative dump path lands here
     argv = ["match", "--pcap", str(files["cap"]), "--patterns", str(files["standin"]),
             "--sharded", "--shard-axis", "patterns", *flags]
-    assert pt_main(argv) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    outs = []
+    for main in (pt_main, jax_main):
+        assert main(argv) == 0
+        out = capsys.readouterr().out.splitlines()
+        outs.append(([ln for ln in out if not ln.startswith("Elapsed time = ")],
+                     (tmp_path / "x.pcap").read_bytes() if "x.pcap" in flags else None))
+    assert outs[0] == outs[1] and len(outs[0][0]) > 10
 
 
 def test_sharded_ac_engine(files, capsys, monkeypatch):
