@@ -136,6 +136,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    rows, and the walls of ``match``, ``match --offsets``, ``match
    --dump-matches``, ``match --stream`` and ``match --stream --offsets``
    (median of 3, in turns).
+11. The DFA scans at full width (``ac_scan`` and ``kmp_scan`` of
+   ``csrc/scan.cu``; phase 2 holds both against their plain versions:
+   totals, rows, carried states, lengths <= 0 and past the width, NUL
+   patterns, uint16 and int32 tables in shared and device memory, a set of
+   more than 65,536 states, duplicates and a 99-byte pattern).  With the
+   launch counters reset just before each step: ``Matcher(engine='ac')``
+   and ``Matcher(engine='kmp')`` ``count_pcap`` on phase 3's capture give
+   phase 3's counts and launch only their kernel; per packet on the first
+   8,192 rows they equal phase 3's rows, the plain version on the card and
+   a pure-Python count; ``count_chunk`` over phase 3's rows in 2,048- and
+   512-byte chunks gives phase 3's counts; ``engine='ac'`` on phase 5's
+   3,072 rules gives phase 5's counts, and ``kmp`` at 3,072 rules on the
+   first 8,192 rows phase 5's rows; ``match --engine ac|kmp [--stream]
+   [--sharded --shard-axis packets] --json`` gives phase 3's counts with
+   the JAX CLI's ``execution`` keys; ``FlowStreamMatcher(engine='ac')``
+   (its flows revived round after round from their stored states), ``match
+   --flows --stream --engine ac``, ``count_flows_chunked`` and a 2-shard
+   lane mesh give phase 6's counts, and the reordered capture the window
+   engine's and the pure-Python counts.  Times: each kernel over phase 3's
+   resident tiles (median of 20) and its device time queued alone, against
+   its bound, the kernel and its plain version on the first 8,192 rows,
+   beside them the window and filter kernels over the same tiles; ``ac`` over
+   phase 5's tiles beside the filter and window kernels there; the AC flow
+   stream and its rounds; the walls of ``match --engine pallas|ac|kmp
+   [--stream]`` (median of 3, in turns).
 
 The line before the last is one JSON object with a record per kernel, each
 with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -1881,6 +1906,400 @@ def attribution_phase(dev, card: str, cw, ct, matcher, pat_file, cap, batch, cou
             "plain_covers": f"first {ROWS_PER_PACKET_RUN} rows", "ms_plain_rows": head_ms,
             "library_ms": None, "matches": M, **bnd, "bound_share": bnd["bound_ms"] / find_ms}
 
+# -- the DFA scans (phases 2 and 11) -------------------------------------------
+
+# Integer operations the bounds count: ac_scan, per scanned byte, the table
+# index (shift, or) and the emitting-state bitmap test (shift, and); kmp_scan,
+# per byte and pattern, the index and the accept compare-and-add.  Loads are
+# not operations; the table's bytes are counted once, as an input.
+AC_OPS_PER_BYTE = 4
+KMP_OPS_PER_BYTE = 3
+SCAN_SRC = "multithreading_string_matching_tpu_torch/csrc/scan.cu"
+SCAN_REF = "multithreading_string_matching_tpu/ops/scan.py"
+DUPS = [b"ab", b"aba", b"b", b"abab", b"ca", b"ab", b"abcdefgh", b"abcde"]
+NULS = [b"a\x00b", b"\x00\x00", b"ab", b"\x00", b"b\x00"]
+
+
+def scan_cases(rng, patterns):
+    """(name, patterns, payload, lengths, force_int32): rows not zero past
+    their lengths, lengths from -8 to 8 past the width."""
+    long_states = [bytes(rng.integers(97, 123, size=256).tolist()) for _ in range(300)]
+    mid = rule_set(SEED + 7, 400, lo=8, hi=24)
+    out = []
+    for name, pats, n, L, alphabet, force in (
+        ("dups", DUPS, 64, 200, b"abc\x00", False),
+        ("nul", NULS, 48, 61, b"ab\x00", False),
+        ("unaligned-width-13", DUPS, 33, 13, b"abc", False),
+        ("standin-uint16-shared", patterns, 1024, 1280, ALNUM + b" /:.", False),
+        ("uint16-device-memory", mid, 256, 600, ALNUM, False),
+        ("int32-shared", DUPS, 64, 300, b"abc", True),
+        ("int32-65536-plus-states", long_states, 64, 600, b"abcdefghijklmnopqrstuvwxyz", False),
+        ("many-lanes", DUPS, 20000, 40, b"abc", False),
+        ("99-byte", [b"ab" * 49 + b"c", b"abab", b"c", b"abab"], 40, 400, b"abc", False),
+        ("kmp-int32-300-byte", [b"x" * 300, b"xy", b"y"], 24, 700, b"xy", False),
+    ):
+        p, ln = planted_tile(rng, pats, n, L, alphabet)
+        ln = (ln.astype(np.int64) + rng.integers(-8, 9, size=n)).astype(np.int32)
+        out.append((name, pats, p, ln, force))
+    return out
+
+
+def scan_checks(dev, compare, sc) -> None:
+    """Phase 2's DFA part: ac_scan (totals, rows, final states; from the root
+    and from carried states, some outside the table) and kmp_scan (totals,
+    rows) against their plain versions on the same CUDA tensors."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
+    from multithreading_string_matching_tpu_torch.models.aho_corasick import AhoCorasick
+    from multithreading_string_matching_tpu_torch.models.kmp import stack_kmp_dfas
+
+    rng = np.random.default_rng(SEED + 8)
+    patterns = load_patterns(pathlib.Path(__file__).resolve().parent / (
+        "multithreading_string_matching_tpu_torch/data/strings_standin.txt"))
+    for name, pats, payload, lengths, force in scan_cases(rng, patterns):
+        p = torch.from_numpy(payload).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        n = p.shape[0]
+        t0 = time.perf_counter()
+        ac = AhoCorasick.build(pats)
+        saved = sc.UINT16_STATES
+        if force:
+            sc.UINT16_STATES = 4  # this small set's table as int32
+        try:
+            cac = sc.CompiledAC.from_automaton(ac, dev)
+        finally:
+            sc.UINT16_STATES = saved
+        built = time.perf_counter() - t0
+        states = rng.integers(-2, ac.goto.shape[0] + 3, size=n).astype(np.int32)
+        found = 0
+        for label, init in (("root", np.zeros(n, np.int32)), ("carried", states)):
+            st = torch.from_numpy(init).to(dev)
+            for per_packet in (False, True):
+                got, got_st = sc.ac_scan(cac, p, ln, st, per_packet=per_packet)
+                want, want_st = sc.ac_scan_plain(cac, p, ln, st, per_packet=per_packet)
+                compare("ac_scan", got, want, f"{name} {label} per_packet={per_packet}")
+                compare("ac_scan", got_st, want_st, f"{name} {label} states")
+                found = max(found, int(want.sum()))
+        check(found > 0, f"ac_scan case {name} counted nothing")
+        check(cac.table.dtype == (torch.int32 if force or ac.goto.shape[0] > 65536
+                                  else torch.int16), f"{name}: table {cac.table.dtype}")
+        dfas, accept = stack_kmp_dfas(pats)
+        kmp = sc.CompiledKMP.from_numpy(dfas, accept, dev)
+        for per_packet in (False, True):
+            compare("kmp_scan", sc.kmp_scan(kmp, p, ln, per_packet=per_packet),
+                    sc.kmp_scan_plain(kmp, p, ln, per_packet=per_packet),
+                    f"{name} per_packet={per_packet}")
+        table_bytes = cac.table.numel() * cac.table.element_size()
+        print(f"scan kernel check {name}: {ac.goto.shape[0]} states ({cac.table.dtype}, "
+              f"{table_bytes} B table{', shared memory' if table_bytes <= 227 * 1024 else ''}; "
+              f"built in {built:.3f} s), KMP M={dfas.shape[1]} ({kmp.table.dtype}), n={n} "
+              f"L={payload.shape[1]}, totals {found}: ac_scan and kmp_scan equal")
+
+
+def scan_bound(nbytes: int, row_bytes: int, table_bytes: int, out_ints: int, ops: float) -> dict:
+    """Bytes: the real payload bytes, the table, ``row_bytes`` of lengths
+    (and states in and out), the counts out; operations as
+    ``AC_OPS_PER_BYTE`` / ``KMP_OPS_PER_BYTE`` say, at the int32 rate."""
+    return bound(nbytes + table_bytes + row_bytes + 4 * out_ints, ops, int32_ops_per_s())
+
+
+def dfa_phase(dev, card: str, sc, cw, ct, matcher, patterns, pat_file, cap, batch, counts,
+              per_row, prep, rules, big, cap2, batch2, big_counts, big_rows, prep2, flow_cap,
+              flow_counts, compare, max_err) -> list:
+    """Phase 11, the DFA scans at full width; returns the kernel records of
+    ``ac_scan`` and ``kmp_scan``."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch import cli
+    from multithreading_string_matching_tpu_torch.api import Matcher
+    from multithreading_string_matching_tpu_torch.io.flows import count_flows_chunked, extract_flows
+    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap, slice_pcap
+    from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
+    from multithreading_string_matching_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    mods = (cw, ct, sc)
+
+    def reset():
+        torch.cuda.synchronize()
+        reset_launches(*mods)
+
+    def only(kname, label) -> int:
+        got = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+        check(set(got) == {kname}, f"{label} launched {got}, not {kname} alone")
+        return got[kname]
+
+    n_head = ROWS_PER_PACKET_RUN
+    head_p, head_l = batch.payloads[:n_head], batch.lengths[:n_head]
+    hp, hl = torch.from_numpy(head_p).to(dev), torch.from_numpy(head_l).to(dev)
+    hz = torch.zeros(n_head, dtype=torch.int32, device=dev)
+    eng = {e: Matcher(patterns, engine=e, device=dev) for e in ("ac", "kmp")}
+    t0 = time.perf_counter()
+    cac, kmp = eng["ac"].cac, eng["kmp"].kmp
+    print(f"stand-in tables: {cac.num_states} AC states ({cac.table.dtype}, "
+          f"{cac.table.numel() * cac.table.element_size()} B), KMP {tuple(kmp.table.shape)} "
+          f"({kmp.table.dtype}), built in {time.perf_counter() - t0:.3f} s")
+
+    # -- 1. count_pcap, each engine; per packet on the first rows ---------------
+    launches, plain_ms, plain_out = {}, {}, {}
+    for e, m in eng.items():
+        reset()
+        t0 = time.perf_counter()
+        c = m.count_pcap(cap, "udp")
+        wall = time.perf_counter() - t0
+        launches[f"{e}_scan"] = only(f"{e}_scan", f"count_pcap engine={e}")
+        check(np.array_equal(c, counts), f"engine={e} count_pcap differs from phase 3's counts")
+        reset()
+        r = m.count(head_p, head_l, per_packet=True)
+        only(f"{e}_scan", f"engine={e} per packet")
+        check(np.array_equal(r, per_row), f"engine={e} per-packet rows differ from phase 3's")
+        if e == "ac":
+            got, _ = sc.ac_scan(cac, hp, hl, hz, per_packet=True)
+            (want, _), plain_ms[e] = timed_once(
+                lambda: sc.ac_scan_plain(cac, hp, hl, hz, per_packet=True))
+            want = want[:, torch.from_numpy(m.ac.dup_map).to(dev).long()]
+            got = got[:, torch.from_numpy(m.ac.dup_map).to(dev).long()]
+        else:
+            got = sc.kmp_scan(kmp, hp, hl, per_packet=True)
+            want, plain_ms[e] = timed_once(lambda: sc.kmp_scan_plain(kmp, hp, hl, per_packet=True))
+        compare(f"{e}_scan", got, want, "phase 3's first 8,192 rows")
+        check(np.array_equal(want.cpu().numpy(), r), f"engine={e}: plain rows differ")
+        for row in range(min(100, n_head)):
+            text = head_p[row, : head_l[row]].tobytes()
+            check(list(r[row]) == [overlapping(text, q) for q in patterns],
+                  f"engine={e} row {row} differs from the pure-Python count")
+        print(f"engine={e}: count_pcap {wall:.3f} s, {launches[f'{e}_scan']} {e}_scan launches = "
+              f"phase 3's counts; per packet on {n_head} rows = phase 3's rows = plain on the "
+              f"card = pure Python (100 rows) [{card}]")
+
+    # -- 2. carried states over phase 3's rows ----------------------------------
+    m = eng["ac"]
+    L = batch.payloads.shape[1]
+    for width in (2048, 512):
+        reset()
+        states = m.streaming_state(batch.payloads.shape[0])
+        total = np.zeros(len(patterns), np.int64)
+        for c0 in range(0, L, width):
+            cc, states = m.count_chunk(batch.payloads[:, c0:c0 + width], batch.lengths - c0,
+                                       states)
+            total += cc
+        n_launch = only("ac_scan", f"count_chunk width {width}")
+        check(np.array_equal(total, counts), f"count_chunk in {width}-byte chunks differs")
+        print(f"count_chunk over phase 3's rows ({L} wide) in {width}-byte chunks: "
+              f"{n_launch} launches = phase 3's counts")
+
+    # -- 3. the 3,072 rules -----------------------------------------------------
+    t0 = time.perf_counter()
+    mb = Matcher(rules, engine="ac", device=dev)
+    bcac = mb.cac
+    b_build = time.perf_counter() - t0
+    reset()
+    t0 = time.perf_counter()
+    c = mb.count_pcap(cap2, "udp")
+    wall = time.perf_counter() - t0
+    n_launch = only("ac_scan", "3,072 rules engine=ac")
+    check(np.array_equal(c, big_counts), "engine=ac on the 3,072 rules differs from phase 5's")
+    head2_p, head2_l = batch2.payloads[:n_head], batch2.lengths[:n_head]
+    reset()
+    r = mb.count(head2_p, head2_l, per_packet=True)
+    only("ac_scan", "3,072 rules engine=ac per packet")
+    check(np.array_equal(r, big_rows), "engine=ac rows on the 3,072 rules differ from phase 5's")
+    t0 = time.perf_counter()
+    mk = Matcher(rules, engine="kmp", device=dev)
+    bkmp = mk.kmp
+    k_build = time.perf_counter() - t0
+    reset()
+    _, kmp_rules_ms = timed_once(lambda: mk.count(head2_p, head2_l, per_packet=True))
+    r = mk.count(head2_p, head2_l, per_packet=True)
+    only("kmp_scan", "3,072 rules engine=kmp per packet")
+    check(np.array_equal(r, big_rows), "engine=kmp rows on the 3,072 rules differ from phase 5's")
+    h2p, h2l = torch.from_numpy(head2_p).to(dev), torch.from_numpy(head2_l).to(dev)
+    (want, _), ac_rules_plain_ms = timed_once(
+        lambda: sc.ac_scan_plain(bcac, h2p, h2l, hz, per_packet=True))
+    compare("ac_scan", sc.ac_scan(bcac, h2p, h2l, hz, per_packet=True)[0], want,
+            "3,072 rules, phase 5's first 8,192 rows")
+    print(f"3,072 rules: {bcac.num_states} AC states ({bcac.table.dtype}, "
+          f"{bcac.table.numel() * bcac.table.element_size()} B, device memory; automaton and "
+          f"tables {b_build:.3f} s), KMP {tuple(bkmp.table.shape)} {bkmp.table.dtype} "
+          f"({k_build:.3f} s); engine=ac count_pcap {wall:.3f} s, {n_launch} launches = phase "
+          f"5's counts; ac and kmp rows on {n_head} rows = phase 5's rows (kmp with the host "
+          f"copy-back {kmp_rules_ms:.4f} ms); ac plain on those rows {ac_rules_plain_ms:.4f} ms "
+          f"(1 run) [{card}]")
+
+    # -- 4. the command line ------------------------------------------------------
+    jax_keys = {"engine_requested", "engine_resolved", "patterns", "unique_patterns",
+                "total_pattern_words", "max_pattern_len", "case_insensitive", "bucketed",
+                "nul_patterns"}
+    for e in ("ac", "kmp"):
+        for flags in ([], ["--stream"], ["--sharded", "--shard-axis", "packets"]):
+            reset()
+            blob, wall = cli_json(cli, ["match", "--pcap", cap, "--patterns", pat_file, "--json",
+                                        "--engine", e, *flags])
+            sharded = "--sharded" in flags
+            runs = "ac" if sharded else e
+            n_launch = only(f"{runs}_scan", f"match --engine {e} {' '.join(flags)}")
+            ex = blob["execution"]
+            want_keys = jax_keys | {"device"} | ({"shard_axis"} if sharded else set()) | (
+                {"sharded_remap"} if sharded and e == "kmp" else set())
+            check(blob["counts"] == counts.tolist(), f"match --engine {e} {flags} counts differ")
+            check(set(ex) == want_keys and ex["engine_resolved"] == runs
+                  and ex.get("sharded_remap", "kmp->ac") == "kmp->ac",
+                  f"match --engine {e} {flags} execution {ex}")
+            print(f"match --engine {e} {' '.join(flags)} --json: phase 3's counts, "
+                  f"{n_launch} {runs}_scan launches, execution keys = the JAX CLI's + device, "
+                  f"{wall:.4f} s")
+
+    # -- 5. flows ----------------------------------------------------------------
+    fm = Matcher(patterns, engine="ac", device=dev)
+    pcap = read_pcap(flow_cap)
+    slices = [slice_pcap(pcap, s, s + FLOW_SLICE, copy=False)
+              for s in range(0, pcap.num_packets, FLOW_SLICE)]
+    split = {"round": 0.0}
+
+    def stream(**kw):
+        fs = FlowStreamMatcher(fm, "tcp", engine="ac", **kw)
+        ac_round = fs._ac_round
+
+        def timed_round(*a):
+            t0 = time.perf_counter()
+            ac_round(*a)
+            torch.cuda.synchronize()
+            split["round"] += time.perf_counter() - t0
+
+        fs._ac_round = timed_round
+        t0 = time.perf_counter()
+        for sl in slices:
+            fs.feed_pcap_slice(sl)
+        fs.flush()
+        out = fs.counts()
+        return fs, out, time.perf_counter() - t0
+
+    stream()  # warm
+    walls, rounds_s = [], []
+    for i in range(STREAM_RUNS):
+        split["round"] = 0.0
+        reset()
+        fs, c, wall = stream()
+        n_launch = only("ac_scan", "the AC flow stream")
+        check(np.array_equal(c, flow_counts), "the AC flow stream differs from phase 6's counts")
+        walls.append(wall)
+        rounds_s.append(split["round"])
+    check(fs._round > 1, "the AC flow stream ran one round: no flow was revived")
+    med = statistics.median(walls)
+    print(f"AC flow stream: {fs.flows_seen} flows revived over {fs._round} rounds from their "
+          f"stored states, {n_launch} ac_scan launches = phase 6's counts; median {med:.4f} s of "
+          f"{STREAM_RUNS} = {fs.bytes_seen / med:.6e} stream B/s; rounds (chunk loop, copies, "
+          f"kernels, synchronised) median {statistics.median(rounds_s):.4f} s = "
+          f"{statistics.median(rounds_s) / fs._round * 1e3:.4f} ms a round [{card}]")
+    reset()
+    blob, wall = cli_json(cli, ["match", "--pcap", flow_cap, "--patterns", pat_file, "--mode",
+                                "tcp", "--json", "--flows", "--stream", "--engine", "ac"])
+    n_launch = only("ac_scan", "match --flows --stream --engine ac")
+    check(blob["counts"] == flow_counts.tolist() and blob["execution"]["engine_resolved"] == "ac",
+          "match --flows --stream --engine ac differs from phase 6's")
+    print(f"match --flows --stream --engine ac --json: phase 6's counts, {n_launch} launches, "
+          f"{wall:.4f} s wall [{card}]")
+    fb = extract_flows(pcap, "tcp")
+    reset()
+    t0 = time.perf_counter()
+    c = count_flows_chunked(fm, fb)
+    wall = time.perf_counter() - t0
+    n_launch = only("ac_scan", "count_flows_chunked")
+    check(np.array_equal(c, flow_counts), "count_flows_chunked differs from phase 6's counts")
+    print(f"count_flows_chunked ({fb.num_flows} flows x {fb.payloads.shape[1]} B, 2,048-byte "
+          f"chunks): {n_launch} launches = phase 6's counts, {wall:.4f} s")
+    reset()
+    fs, c, wall = stream(sharded=True, mesh=make_mesh([dev, dev]))
+    n_launch = only("ac_scan", "the 2-shard AC flow stream")
+    check(np.array_equal(c, flow_counts), "the 2-shard AC flow stream differs from phase 6's")
+    print(f"AC flow stream on a 2-shard lane mesh (one card twice): {n_launch} launches = "
+          f"phase 6's counts, {wall:.4f} s")
+    rflows, rp = reorder_capture(patterns)
+    want = oracle_counts([pay for _, pay in rflows], patterns)
+    reset()
+    fs = FlowStreamMatcher(fm, "tcp", engine="ac", reorder=True, scan_bytes=1 << 40)
+    for s0 in range(0, rp.num_packets, 1000):
+        fs.feed_pcap_slice(slice_pcap(rp, s0, s0 + 1000, copy=False))
+    fs.flush()
+    only("ac_scan", "the reordered AC flow stream")
+    check(np.array_equal(fs.counts(), want), "the reordered AC flow stream differs from the "
+          "pure-Python count")
+    check(np.array_equal(fs.counts(), reorder_stream(Matcher(patterns, device=dev), rp)),
+          "the reordered AC flow stream differs from the window engine's")
+    print(f"reordered capture ({len(rflows)} flows): AC stream = window stream = pure Python "
+          f"({int(want.sum())} matches)")
+
+    # -- times ------------------------------------------------------------------
+    def pass_fn(fn, tiles):
+        zs = [torch.zeros(p.shape[0], dtype=torch.int32, device=dev) for p, _ in tiles]
+        return lambda: [fn(p, l, z) for (p, l), z in zip(tiles, zs)]
+
+    ac_pass = pass_fn(lambda p, l, z: sc.ac_scan(cac, p, l, z), prep.tiles)
+    kmp_pass = pass_fn(lambda p, l, z: sc.kmp_scan(kmp, p, l), prep.tiles)
+    std_filter = ct.CudaTableMatcher(matcher.window, dev, filtered=True)
+    nbytes = prep.total_payload_bytes
+    t = {"ac": cuda_ms(ac_pass, SCAN_RUNS)}
+    _, once = timed_once(kmp_pass)
+    kmp_runs = SCAN_RUNS if once < 200 else PLAIN_RUNS
+    t["kmp"] = cuda_ms(kmp_pass, kmp_runs)
+    t["window"] = cuda_ms(lambda: matcher.kernels.count_tiles(prep.tiles), SCAN_RUNS)
+    t["filter"] = cuda_ms(lambda: std_filter.count_tiles(prep.tiles), SCAN_RUNS)
+    dev_ms = {"ac": device_ms(ac_pass), "kmp": device_ms(kmp_pass)}
+    rows_ms = {"ac": cuda_ms(lambda: sc.ac_scan(cac, hp, hl, hz, per_packet=True), SCAN_RUNS),
+               "kmp": cuda_ms(lambda: sc.kmp_scan(kmp, hp, hl, per_packet=True), SCAN_RUNS)}
+    hbytes = int(np.clip(head_l, 0, None).sum())
+    for e, runs in (("ac", SCAN_RUNS), ("kmp", kmp_runs), ("window", SCAN_RUNS),
+                    ("filter", SCAN_RUNS)):
+        print(f"stand-in set over phase 3's {len(prep.tiles)} tiles, {e} kernel: {t[e]:.4f} ms = "
+              f"{nbytes / t[e] * 1e3:.6e} payload B/s (median of {runs}) [{card}]")
+    for e in ("ac", "kmp"):
+        print(f"{e}_scan: device time of the pass queued alone {fmt_ms(dev_ms[e])}; first "
+              f"{n_head} rows ({hbytes} B), per packet: kernel {rows_ms[e]:.4f} ms, plain "
+              f"{plain_ms[e]:.4f} ms (1 run) [{card}]")
+    ac2_pass = pass_fn(lambda p, l, z: sc.ac_scan(bcac, p, l, z), prep2.tiles)
+    t2 = {"ac": cuda_ms(ac2_pass, SCAN_RUNS),
+          "filter": cuda_ms(lambda: big.kernels.count_tiles(prep2.tiles), SCAN_RUNS),
+          "window": cuda_ms(lambda: cw.CudaWindowMatcher(big.window, dev).count_tiles(prep2.tiles),
+                            SCAN_RUNS)}
+    ac2_dev = device_ms(ac2_pass)
+    for e, ms in t2.items():
+        print(f"3,072 rules over phase 5's {len(prep2.tiles)} tiles, {e} kernel: {ms:.4f} ms = "
+              f"{prep2.total_payload_bytes / ms * 1e3:.6e} payload B/s (median of {SCAN_RUNS})"
+              f"{'; device time queued alone ' + fmt_ms(ac2_dev) if e == 'ac' else ''} [{card}]")
+
+    # The commands' walls, in turns.
+    walls = {}
+    for _ in range(WALL_ROUNDS):
+        for e in ("pallas", "ac", "kmp"):
+            for flags in ([], ["--stream"]):
+                blob, wall = cli_json(cli, ["match", "--pcap", cap, "--patterns", pat_file,
+                                            "--json", "--engine", e, *flags])
+                check(blob["counts"] == counts.tolist(), f"match --engine {e} {flags}")
+                walls.setdefault((e, " ".join(flags)), []).append(wall)
+    for (e, flags), w in walls.items():
+        print(f"match --engine {e} {flags} --json wall: median {statistics.median(w):.4f} s of "
+              f"{len(w)} ({', '.join(f'{x:.4f}' for x in w)}) [{card}]")
+
+    U = cac.num_unique
+    P = len(patterns)
+    recs = []
+    rows = sum(int(p.shape[0]) for p, _ in prep.tiles)
+    for e, line, ops, out_ints, table, row_bytes in (
+        ("ac", 71, AC_OPS_PER_BYTE * nbytes, U, cac.table, 12 * rows),
+        ("kmp", 174, KMP_OPS_PER_BYTE * P * nbytes, P, kmp.table, 4 * rows),
+    ):
+        b = scan_bound(nbytes, row_bytes, table.numel() * table.element_size(), out_ints, ops)
+        print(f"{e}_scan bound: {b['bound_ms']:.4f} ms ({b['bound_by']}) / {t[e]:.4f} ms = "
+              f"{b['bound_ms'] / t[e]:.4f} of its bound [{card}]")
+        recs.append({"name": f"{e}_scan", "route": "cuda", "source": SCAN_SRC,
+                     "replaces": f"{SCAN_REF}:{line}", "launches": launches[f"{e}_scan"],
+                     "max_abs_err": max_err[f"{e}_scan"], "ms": t[e], "device_ms": dev_ms[e],
+                     "plain_ms": plain_ms[e], "plain_rows": n_head, "rows_ms": rows_ms[e],
+                     "library_ms": None, **b, "bound_share": b["bound_ms"] / t[e]})
+    print(f"phase 11: {time.perf_counter() - t_phase:.3f} s")
+    return recs
+
 
 def main() -> int:
     import torch
@@ -1902,6 +2321,7 @@ def run(dev) -> int:
     from multithreading_string_matching_tpu_torch.ops import cuda_table as ct
     from multithreading_string_matching_tpu_torch.ops import cuda_window as cw
     from multithreading_string_matching_tpu_torch.ops import mxu as mx
+    from multithreading_string_matching_tpu_torch.ops import scan as sc
     from multithreading_string_matching_tpu_torch.ops.table import filter_count, partition, table_count
     from multithreading_string_matching_tpu_torch.ops.window import (
         WindowProgram,
@@ -1917,11 +2337,11 @@ def run(dev) -> int:
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        for f in [ex.submit(m.load_library, verbose_ptxas=True) for m in (cw, ct, mx)]:
+    with ThreadPoolExecutor(4) as ex:
+        for f in [ex.submit(m.load_library, verbose_ptxas=True) for m in (cw, ct, mx, sc)]:
             f.result()
-    print(f"build: {time.perf_counter() - t0:.3f} s wall for the three libraries")
-    for m in (cw, ct, mx):
+    print(f"build: {time.perf_counter() - t0:.3f} s wall for the four libraries")
+    for m in (cw, ct, mx, sc):
         print(f"build: nvcc {m.BUILD_INFO['seconds']:.3f} s -> {m.BUILD_INFO['path']}")
         functions, spilling, fn = 0, [], None
         for line in str(m.BUILD_INFO["log"]).splitlines():
@@ -1939,7 +2359,7 @@ def run(dev) -> int:
 
     # -- 2. kernels against the plain version -----------------------------
     rng = np.random.default_rng(SEED)
-    max_err = {k: 0 for k in (*cw.LAUNCHES, *ct.LAUNCHES)}
+    max_err = {k: 0 for k in (*cw.LAUNCHES, *ct.LAUNCHES, *sc.LAUNCHES)}
 
     def compare(kname, got, want, name):
         torch.cuda.synchronize()
@@ -2006,6 +2426,7 @@ def run(dev) -> int:
     compare("window_count_totals", out9, window_count(w9, m9, l9, p9, n9), "nine probe masks")
     print(f"nine probe masks: refused by the wrappers; the C entry point = plain "
           f"({int(out9.sum())} matches)")
+    scan_checks(dev, compare, sc)
 
     # -- 3. the main path -------------------------------------------------
     pat_file = pathlib.Path(__file__).resolve().parent / (
@@ -2322,6 +2743,12 @@ def run(dev) -> int:
                                     flow_capture(patterns, SEED), flow_counts)
     rules_file.unlink()
 
+    # -- 11. the DFA scans ------------------------------------------------------
+    scan_records = dfa_phase(dev, card, sc, cw, ct, matcher, patterns, pat_file, cap, batch,
+                             counts, per_row, prep, rules, big, cap2, batch2, big_counts,
+                             big_rows, prep2, flow_capture(patterns, SEED), flow_counts,
+                             compare, max_err)
+
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
     ref = "multithreading_string_matching_tpu/ops/pallas_window.py"
     tsrc = "multithreading_string_matching_tpu_torch/csrc/table_count.cu"
@@ -2371,6 +2798,7 @@ def run(dev) -> int:
         *shard_records,
         mxu_record,
         find_record,
+        *scan_records,
     ]}
     # Launches of one streamed pass (phase 9) beside the records' own.
     for rec in record["kernels"]:

@@ -8,10 +8,13 @@ package's, so each module's counterpart is found by name:
 - ``io``    — pattern files, classic-pcap ingest (one-shot and streamed),
               payload decode, flow reassembly, synthetic captures, the
               native C++ ingest bridge (host, numpy).
-- ``ops``   — the window and table matchers: staging plans, the plain
-              PyTorch versions, and the hand-written CUDA kernels
-              (``csrc/*.cu``).
-- ``parallel`` — the flow monitor (``flow_stream.FlowStreamMatcher``).
+- ``models`` — the host-built automata: Aho-Corasick and the per-pattern
+              KMP DFAs.
+- ``ops``   — the window and table matchers and the DFA scans: staging
+              plans, the plain PyTorch versions, and the hand-written CUDA
+              kernels (``csrc/*.cu``).
+- ``parallel`` — the flow monitor (``flow_stream.FlowStreamMatcher``), the
+              device meshes, the streamed pipelines.
 - ``utils`` — phase timers and the reference-compatible report.
 - ``api``   — :class:`Matcher`; ``cli`` — the ``serial`` and ``match``
               commands.

@@ -9,9 +9,10 @@ The device is explicit.  ``device="cuda"`` (the default) stages payload
 tiles on the card and counts them with the hand-written kernels: the window
 kernels of ops/cuda_window.py for small pattern sets, the table and filter
 kernels of ops/cuda_table.py for large ones, chosen by the JAX package's
-rule.  It raises when CUDA is missing or the kernels do not build, and never
-carries on on the CPU.  ``device="cpu"`` runs the same path through the
-kernels' plain PyTorch versions.  :meth:`Matcher.find_matches` reports where
+rule; the ``ac`` and ``kmp`` engines run the DFA scan kernels of
+ops/scan.py.  It raises when CUDA is missing or the kernels do not build,
+and never carries on on the CPU.  ``device="cpu"`` runs the same paths
+through the kernels' plain PyTorch versions.  :meth:`Matcher.find_matches` reports where
 each match is, on the window kernels' emit mode (``window_find``) whatever
 the engine, as the JAX package's always takes its window program.
 """
@@ -32,9 +33,18 @@ from multithreading_string_matching_tpu_torch.ops.bucketing import (
     pack_plan,
     pack_rows,
     quantize_rows,
+    run_bucketed,
 )
 from multithreading_string_matching_tpu_torch.ops.cuda_table import CudaTableMatcher
+from multithreading_string_matching_tpu_torch.models.aho_corasick import AhoCorasick
+from multithreading_string_matching_tpu_torch.models.kmp import stack_kmp_dfas
 from multithreading_string_matching_tpu_torch.ops.cuda_window import CudaWindowMatcher
+from multithreading_string_matching_tpu_torch.ops.scan import (
+    CompiledAC,
+    CompiledKMP,
+    count_matches_ac,
+    count_matches_kmp,
+)
 from multithreading_string_matching_tpu_torch.ops.window import (
     WindowProgram,
     count_matches_window_tiles,
@@ -80,8 +90,11 @@ class Matcher:
       (ops/cuda_window.py).  ``MSM_PALLAS_TABLE=1``/``0`` forces either.
     - ``'window'``: the plain PyTorch window count (ops/window.py) on the
       matcher's device.
-    - ``'ac'``, ``'kmp'``: not yet ported (ROADMAP Queue 1 item 4,
-      ``ops/scan.py``); they raise ``NotImplementedError``.
+    - ``'ac'``: one Aho-Corasick DFA pass per byte (ops/scan.py
+      ``ac_scan``); it also carries DFA states across chunks
+      (:meth:`count_chunk`).
+    - ``'kmp'``: one KMP DFA per pattern, the reference-shaped conformance
+      path (ops/scan.py ``kmp_scan``).
     - ``'auto'``: the JAX package's rule, decided from the pattern list.
     """
 
@@ -118,6 +131,12 @@ class Matcher:
         self._window = None
         self._kernels = None
         self._halo_kernels = None
+        # Automata build lazily: a deployment uses one engine, and the
+        # stacked KMP tables are O(P * max_len * 256).
+        self._ac = None
+        self._cac = None
+        self._kmp = None
+        self._kmp_dev = None
 
     def _maybe_fold(self, payloads: np.ndarray) -> np.ndarray:
         """Case-fold payload bytes when case-insensitive; zero padding stays
@@ -129,6 +148,39 @@ class Matcher:
         if self._window is None:
             self._window = WindowProgram.build(self._match_patterns)
         return self._window
+
+    @property
+    def ac(self) -> AhoCorasick:
+        if self._ac is None:
+            self._ac = AhoCorasick.build(self._match_patterns)
+        return self._ac
+
+    @property
+    def cac(self) -> CompiledAC:
+        """The automaton's tables on this matcher's device."""
+        if self._cac is None:
+            self._cac = CompiledAC.from_automaton(self.ac, device=self.device)
+        return self._cac
+
+    @property
+    def _kmp_dfas(self) -> np.ndarray:
+        if self._kmp is None:
+            self._kmp = stack_kmp_dfas(self._match_patterns)
+        return self._kmp[0]
+
+    @property
+    def _kmp_accept(self) -> np.ndarray:
+        if self._kmp is None:
+            self._kmp = stack_kmp_dfas(self._match_patterns)
+        return self._kmp[1]
+
+    @property
+    def kmp(self) -> CompiledKMP:
+        """The stacked KMP DFAs on this matcher's device."""
+        if self._kmp_dev is None:
+            self._kmp_dev = CompiledKMP.from_numpy(self._kmp_dfas, self._kmp_accept,
+                                                   device=self.device)
+        return self._kmp_dev
 
     @property
     def kernels(self) -> Union[CudaWindowMatcher, CudaTableMatcher]:
@@ -210,8 +262,8 @@ class Matcher:
 
     def _requested_engine(self, engine: Optional[str]) -> str:
         """The engine a request names, ``auto`` decided by the JAX package's
-        rule; ``ac`` and ``kmp`` come back as they are (the sharded paths
-        remap them to the window family, as the JAX package does)."""
+        rule (the sharded paths remap ``ac``/``kmp`` as the JAX package
+        does)."""
         engine = engine or self.engine
         if engine not in ENGINES:
             raise ValueError(
@@ -225,13 +277,19 @@ class Matcher:
         return engine
 
     def _resolve_engine(self, engine: Optional[str]) -> str:
-        engine = self._requested_engine(engine)
-        if engine in ("ac", "kmp"):
-            raise NotImplementedError(
-                f"engine {engine!r} is not yet ported to the torch package "
-                "(ROADMAP Queue 1 item 4: ops/scan.py)"
-            )
-        return engine
+        return self._requested_engine(engine)
+
+    def _engine_fn(self, engine: str):
+        """``fn(payloads, lengths, per_packet)`` counting one tile over the
+        original pattern list with the ``ac`` or ``kmp`` engine: an int32
+        tensor on this matcher's device."""
+        if engine == "kmp":
+            return lambda p, l, per_packet: count_matches_kmp(
+                self.kmp, None, p, l, per_packet=per_packet)
+        if engine == "ac":
+            return lambda p, l, per_packet: count_matches_ac(
+                self.cac, p, l, per_packet=per_packet, dup_map=self.ac.dup_map)
+        raise ValueError(f"no DFA engine {engine!r}")
 
     def explain(self) -> dict:
         """How this matcher will execute (for logs, not for program logic)."""
@@ -320,6 +378,16 @@ class Matcher:
         if np.shape(payloads)[0] == 0:
             shape = (0, len(self.patterns)) if per_packet else (len(self.patterns),)
             return np.zeros(shape, dtype=np.int32)
+        if engine in ("ac", "kmp"):
+            # The JAX package's DFA route: bucket tiles cut from the
+            # payloads as they are (a length past the buffer scans to its
+            # end), no packing.
+            payloads = self._maybe_fold(np.asarray(payloads, dtype=np.uint8))
+            fn = self._engine_fn(engine)
+            if bucketed if bucketed is not None else self.bucketed:
+                return run_bucketed(fn, payloads, lengths, n_tile=n_tile, l_quant=l_quant,
+                                    per_packet=per_packet)
+            return fn(payloads, lengths, per_packet=per_packet).cpu().numpy()
         if per_packet or engine == "window":
             packed = False
         else:
@@ -458,16 +526,25 @@ class Matcher:
         if per_packet:
             if engine == "pallas":
                 outs = self.kernels.count_tiles_per_row(prep.tiles)
-            else:
+            elif engine == "window":
                 outs = count_matches_window_tiles(self.window, prep.tiles, per_packet=True)
+            else:
+                fn = self._engine_fn(engine)
+                outs = [fn(p, l, per_packet=True) for p, l in prep.tiles]
             merged = np.zeros((prep.num_rows, len(self.patterns)), dtype=np.int32)
             for idx, o in zip(prep.row_indices, outs):
                 merged[idx] = o[: len(idx)].cpu().numpy()
             return merged
         if engine == "pallas":
             out = self.kernels.count_tiles(prep.tiles)
-        else:
+        elif engine == "window":
             out = count_matches_window_tiles(self.window, prep.tiles)
+        else:
+            fn = self._engine_fn(engine)
+            out = None
+            for p, l in prep.tiles:
+                o = fn(p, l, per_packet=False)
+                out = o if out is None else out + o
         return out.cpu().numpy() if block else out
 
     def count_batch(self, batch: PayloadBatch, **kw) -> np.ndarray:
@@ -530,3 +607,27 @@ class Matcher:
             pad_n_to=LANE, pad_len_to=SUBLANE,
         )
         return self.count_batch(batch, **kw)
+
+    # -- streaming (carried DFA state across chunks) ----------------------
+
+    def streaming_state(self, num_lanes: int) -> torch.Tensor:
+        """int32[num_lanes] start states (the root) on this matcher's device."""
+        return torch.zeros((num_lanes,), dtype=torch.int32, device=self.device)
+
+    def count_chunk(self, payload_chunk, rel_lengths, states):
+        """Scan one chunk of long payload streams, carrying DFA states.
+
+        ``rel_lengths`` are the lanes' remaining bytes RELATIVE to this
+        chunk's first column (they may be <= 0 or past its width).  Returns
+        ``(counts int32[P] numpy, new_states)``, the states a tensor on this
+        matcher's device (the ``ac_scan`` kernel on the card)."""
+        chunk = payload_chunk
+        if not torch.is_tensor(chunk):
+            chunk = self._maybe_fold(np.asarray(chunk, dtype=np.uint8))
+        elif self.case_insensitive:
+            chunk = torch.as_tensor(_FOLD_TABLE, device=chunk.device)[chunk.long()]
+        counts, new_states = count_matches_ac(
+            self.cac, chunk, rel_lengths,
+            initial_states=states, dup_map=self.ac.dup_map, return_states=True,
+        )
+        return counts.cpu().numpy(), new_states

@@ -16,6 +16,9 @@ Counterpart of ``multithreading_string_matching_tpu/cli.py``::
 ``MSM_DEVICE=cpu|cuda`` (default ``cuda``) picks the device, as
 ``MSM_PLATFORM`` does for the JAX package: ``cuda`` runs the hand-written
 kernels and fails without a card, ``cpu`` runs their plain versions.
+``--engine ac`` and ``--engine kmp`` run the DFA scans (ops/scan.py) on
+every path, with the JAX CLI's remaps: the pattern axis and attribution
+take the window family, the packet axis runs kmp as ac.
 Output is byte-compatible with the reference's report (utils/report.py).
 
 The thread count of ``data`` and ``task`` sizes the HOST thread pool
@@ -416,8 +419,8 @@ def _unique_names(matcher) -> list:
 
 def _sharded_counts(a, matcher, shard_axis: str, payloads, lengths) -> np.ndarray:
     """Totals over the mesh of ``--shard-axis``: the pattern axis through
-    parallel/pattern_shard.py, the packet axis through parallel/mesh.py
-    (whose AC engine is not yet ported: ``--engine ac`` exits 1 there)."""
+    parallel/pattern_shard.py (ac/kmp remap to the window family there),
+    the packet axis through parallel/mesh.py (kmp runs as ac there)."""
     dev_type = matcher.device.type
     if shard_axis in ("patterns", "both"):
         from multithreading_string_matching_tpu_torch.parallel.pattern_shard import (
@@ -437,9 +440,10 @@ def _sharded_counts(a, matcher, shard_axis: str, payloads, lengths) -> np.ndarra
     if eng == "kmp":
         eng = "ac"
     return count_matches_sharded(
-        None, matcher._maybe_fold(payloads), lengths, make_mesh(device_type=dev_type),
-        dup_map=matcher.window.dup_map, engine=eng, window=matcher.window,
-        pallas_matcher=matcher.kernels if eng == "pallas" else None)
+        matcher.cac if eng == "ac" else None, matcher._maybe_fold(payloads), lengths,
+        make_mesh(device_type=dev_type),
+        dup_map=matcher.ac.dup_map if eng == "ac" else matcher.window.dup_map, engine=eng,
+        window=matcher.window, pallas_matcher=matcher.kernels if eng == "pallas" else None)
 
 
 def _sharded_rows(a, matcher, shard_axis: str, payloads, lengths) -> np.ndarray:
@@ -580,7 +584,7 @@ def _match_flows(a, matcher, timer, shard_axis: str) -> int:
 def _flow_stream_engine(a, matcher) -> str:
     """The JAX CLI's choice: an explicit ``window`` anywhere, ``pallas`` or
     ``auto`` take the window rounds on an accelerator, the rest the AC scan
-    (not yet ported, so a CPU run without ``--engine window`` exits 1)."""
+    (the CPU's default)."""
     if a.engine == "window":
         return "window"
     if (a.engine in ("pallas", "auto") and matcher.device.type == "cuda"

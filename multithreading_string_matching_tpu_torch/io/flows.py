@@ -11,8 +11,8 @@ concatenated-flow oracle's.
 
 The parse is the honest one (``decode_headers(strict=True)``: real IHL,
 real TCP data offset, protocol checked).  Truncated captures contribute
-only their captured bytes.  The chunked carried-state scan
-(``count_flows_chunked``) waits for ``ops/scan.py``.
+only their captured bytes.  :func:`count_flows_chunked` scans the streams
+in fixed-width chunks with carried DFA states (the AC engine).
 """
 
 from __future__ import annotations
@@ -341,3 +341,22 @@ def extract_flows(
         flow_of_packet=flow_of_packet, num_packets=n, num_flows=F,
         seg_packets=seg_packets, seg_starts=seg_starts, seg_bounds=seg_bounds,
     )
+
+
+def count_flows_chunked(matcher, fb: FlowBatch, chunk_width: int = 2048) -> np.ndarray:
+    """Scan reassembled flows in fixed-width chunks with carried DFA states
+    (``Matcher.count_chunk``, the ``ac_scan`` kernel on the card): the
+    one-shot counts of the full rows, with each launch's width bounded.
+    Returns int64[P] counts; the states stay on the matcher's device
+    between chunks."""
+    F, L = fb.payloads.shape
+    if F == 0 or L == 0:
+        return np.zeros(len(matcher.patterns), np.int64)
+    states = matcher.streaming_state(F)
+    total = np.zeros(len(matcher.patterns), np.int64)
+    for c in range(0, L, chunk_width):
+        chunk = fb.payloads[:, c : c + chunk_width]
+        rel = np.clip(fb.lengths - c, 0, chunk.shape[1]).astype(np.int32)
+        counts, states = matcher.count_chunk(chunk, rel, states)
+        total += np.asarray(counts, dtype=np.int64)
+    return total

@@ -1,2 +1,2 @@
-"""The window matcher: plain PyTorch version, staging plans and the
-hand-written CUDA kernels."""
+"""The window and table matchers and the DFA scans: plain PyTorch
+versions, staging plans and the hand-written CUDA kernels."""

@@ -1,30 +1,44 @@
-"""Flow-aware streaming: per-flow carried byte halos across feeds.
+"""Flow-aware streaming: per-flow carried state across feeds.
 
-Counterpart of ``multithreading_string_matching_tpu/parallel/flow_stream.py``
-with its ``window`` engine.  A per-packet scan cannot see a signature split
-across two segments of one connection.  :class:`FlowStreamMatcher` appends
-each flow's segments to a pending buffer, and each scan round lays the
-active flows out as lanes ``[H-byte tail | new bytes]``, ``H = max_len - 1``.
-A match counts in the round its last byte falls in (``min_end = H``), and
-never starts in the zeros in front of a young flow's tail (``min_start``),
-so a match across any boundary (segment, feed, scan round) counts once,
-equal to the concatenated-flow oracle.
+Counterpart of ``multithreading_string_matching_tpu/parallel/flow_stream.py``.
+A per-packet scan cannot see a signature split across two segments of one
+connection.  :class:`FlowStreamMatcher` appends each flow's segments to a
+pending buffer, and each scan round lays the active flows out as lanes.
+Two engines carry a flow's state from round to round:
+
+- ``engine="ac"`` (the JAX package's default): one Aho-Corasick DFA state
+  per flow.  A round scans its ``[flows, width]`` chunks with the carried
+  states (``ops/scan.ac_scan``, the states on the device from chunk to
+  chunk), and each flow keeps its final state; a flow revived in a later
+  round goes on from it.  The DFA step composes, so a match split across
+  any boundary counts once.
+- ``engine="window"``: lanes ``[H-byte tail | new bytes]``, ``H = max_len -
+  1``.  A match counts in the round its last byte falls in (``min_end =
+  H``), and never starts in the zeros in front of a young flow's tail
+  (``min_start``).
+
+Either way a match across any boundary (segment, feed, scan round) counts
+once, equal to the concatenated-flow oracle.
 
 Memory: pending bytes are bounded by ``scan_bytes`` (a round fires once a
-feed leaves more, and at :meth:`flush`); between rounds a flow costs its
-``H``-byte tail.  Eviction (``max_flows``, ``idle_rounds``, ``fin_evict``,
-:meth:`evict`) only forgets carried state: pending bytes are scanned first.
+feed leaves more, and at :meth:`flush`); between rounds a flow costs one
+int (ac) or its ``H``-byte tail (window).  Eviction (``max_flows``,
+``idle_rounds``, ``fin_evict``, :meth:`evict`) only forgets carried state:
+pending bytes are scanned first.
 
-On the card a round is one launch of the halo kernel
+On the card an ``ac`` round is one ``ac_scan`` launch per ``width``-byte
+chunk; a ``window`` round is one launch of the halo kernel
 (``ops/cuda_window.window_count_halo``) over the round re-laid as
-fixed-width sub-lanes; the matcher's ``window`` engine takes the plain
+fixed-width sub-lanes, and the matcher's ``window`` engine takes the plain
 version on its device.  Counts stay on the device as int32 across rounds
 and drain to host int64 before they can wrap.
 
-``sharded=True`` splits each single-dispatch round's sub-lanes over a mesh
-(``mesh=``, default: every device of the matcher's type) through
-``parallel/mesh.count_flow_round_sharded``; the chunk loop stays on the
-matcher's device, as in the JAX package.
+``sharded=True`` splits the flow lanes over a mesh (``mesh=``, default:
+every device of the matcher's type): ``ac`` chunks through
+``parallel/mesh.count_chunk_sharded`` (each shard scans its lanes from
+their states), a single-dispatch ``window`` round's sub-lanes through
+``parallel/mesh.count_flow_round_sharded``; the window chunk loop stays on
+the matcher's device, as in the JAX package.
 
 ``collect_offsets=True`` adds a find pass before each round
 (``Matcher.find_matches`` over ``[tail | new bytes]`` rows, the
@@ -32,8 +46,7 @@ matcher's device, as in the JAX package.
 :meth:`FlowStreamMatcher.drain_offsets`, bincount to exactly the round's
 counts: ``(flow key, offset in the reassembled stream, unique pattern)``.
 
-Not yet ported (ROADMAP): ``engine="ac"`` (``ops/scan.py``), sharded or
-not, and ``save``/``load`` (``parallel/stream.py``).
+Not yet ported (ROADMAP): ``save``/``load`` (``parallel/stream.py``).
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ from multithreading_string_matching_tpu_torch.io.flows import (
     tcp_flags,
     tcp_seqs,
 )
+from multithreading_string_matching_tpu_torch.ops.scan import count_matches_ac
 from multithreading_string_matching_tpu_torch.ops.window import StreamHalo, window_stream_chunk
 
 
@@ -96,11 +110,6 @@ class FlowStreamMatcher:
                 "collect_offsets=True needs engine='window' (the find "
                 "pass reads the per-flow byte tail)"
             )
-        if engine == "ac":
-            raise NotImplementedError(
-                "flow-stream engine 'ac' is not yet ported to the torch package "
-                "(ROADMAP Queue 1 item 4: ops/scan.py); use engine='window'"
-            )
         if mesh is not None and not sharded:
             raise ValueError("mesh= is only meaningful with sharded=True")
         if max_flows is not None and max_flows < 1:
@@ -123,10 +132,11 @@ class FlowStreamMatcher:
         self.min_lanes = min_lanes
         self.sharded = sharded
         if sharded:
-            # Flow lanes shard over the mesh: each round's sub-lanes split by
-            # row, one sum merges the counts; lane tails are host state, so
-            # no state crosses rounds on a device.  Lane counts round up to
-            # the device count so the shards are even.
+            # Flow lanes shard over the mesh: ac chunks split by lane, each
+            # shard scanning its lanes from their states; window sub-lanes
+            # split by row (lane tails are host state).  One sum merges the
+            # counts.  Lane counts round up to the device count so the
+            # shards are even.
             from multithreading_string_matching_tpu_torch.parallel.mesh import make_mesh
 
             self.mesh = mesh if mesh is not None else make_mesh(
@@ -136,7 +146,7 @@ class FlowStreamMatcher:
         else:
             self.mesh = None
             self._n_dev = 1
-        self._states: dict = {}      # key -> (tail bytes, real fill)
+        self._states: dict = {}      # ac: key -> DFA state; window: key -> (tail, fill)
         self._pending: dict = {}     # key -> bytearray, or [(seq, bytes)] with reorder
         self._pending_bytes = 0
         self._counts = np.zeros(len(matcher.patterns), np.int64)
@@ -355,6 +365,14 @@ class FlowStreamMatcher:
         # Sharded rounds split the lanes over the mesh: a device-count
         # multiple (a non-pow2 min_lanes or device count would not divide).
         F = -(-F // self._n_dev) * self._n_dev
+        lens_arr = np.array([len(self._pending[k]) for k in flows], np.int64)
+        longest = int(lens_arr.max())
+        long_q = -(-longest // self.width) * self.width
+        rel_all = np.zeros(F, np.int64)
+        rel_all[: len(flows)] = lens_arr
+        if self.engine == "ac":
+            self._ac_round(flows, F, rel_all, longest, long_q)
+            return
         H = max(int(self.matcher.window.max_len) - 1, 1)
         halo_b = np.zeros((F, H), np.uint8)
         fill_v = np.zeros(F, np.int32)
@@ -365,11 +383,6 @@ class FlowStreamMatcher:
                 # are the first H - fill columns.
                 halo_b[i, H - fl :] = np.frombuffer(tail, np.uint8)
                 fill_v[i] = fl
-        lens_arr = np.array([len(self._pending[k]) for k in flows], np.int64)
-        longest = int(lens_arr.max())
-        long_q = -(-longest // self.width) * self.width
-        rel_all = np.zeros(F, np.int64)
-        rel_all[: len(flows)] = lens_arr
         # The whole round in one dispatch when its padded buffer fits the
         # budget; widths round up to powers of two.
         round_q = max(self.width, 1 << max(0, (longest - 1).bit_length()))
@@ -389,9 +402,28 @@ class FlowStreamMatcher:
             self._acc_device(counts_u, positions=self._round_positions)
             self._store_tails(flows, H)
             return
-        # The chunk loop: one padded round buffer sliced by columns, or,
-        # past the budget (one huge flow padding every lane), a fresh tile
-        # per chunk with bounded memory.
+        # Stored tails are raw capture bytes: fold them like the chunks
+        # (folding is idempotent).
+        fold = self.matcher._maybe_fold
+        halo = StreamHalo(self._device_tile(fold(halo_b)), self._device_tile(fill_v))
+        halo_count = self.matcher.halo_kernels.count_tile_halo if self._use_halo_kernel() else None
+
+        def step(tile, c):
+            nonlocal halo
+            counts, halo = window_stream_chunk(
+                self.matcher.window, self._device_tile(fold(tile)),
+                (rel_all - c).astype(np.int32), halo, halo_count=halo_count,
+            )
+            return counts
+
+        self._chunk_loop(flows, F, longest, long_q, step)
+        self._store_tails(flows, H)
+
+    def _chunk_loop(self, flows, F: int, longest: int, long_q: int, step) -> None:
+        """Scan the round in ``width``-column chunks, ``step(tile, c)`` giving
+        each chunk's expanded counts: one padded round buffer sliced by
+        columns, or, past the budget (one huge flow padding every lane), a
+        fresh tile per chunk with bounded memory."""
         padded = None
         if F * long_q <= max(self.ROUND_BUDGET_BYTES, F * self.width):
             padded = np.zeros((F, long_q), np.uint8)
@@ -402,11 +434,6 @@ class FlowStreamMatcher:
         # positions fit int32; else fetch per chunk into host int64.
         device_acc = padded is not None and F * long_q < 2**31
         round_counts = None
-        # Stored tails are raw capture bytes: fold them like the chunks
-        # (folding is idempotent).
-        fold = self.matcher._maybe_fold
-        halo = StreamHalo(self._device_tile(fold(halo_b)), self._device_tile(fill_v))
-        halo_count = self.matcher.halo_kernels.count_tile_halo if self._use_halo_kernel() else None
         for c in range(0, longest, self.width):
             if padded is not None:
                 tile = padded[:, c : c + self.width]
@@ -415,17 +442,47 @@ class FlowStreamMatcher:
                 for i, k in enumerate(flows):
                     seg = self._pending[k][c : c + self.width]
                     tile[i, : len(seg)] = np.frombuffer(bytes(seg), np.uint8)
-            counts, halo = window_stream_chunk(
-                self.matcher.window, self._device_tile(fold(tile)),
-                (rel_all - c).astype(np.int32), halo, halo_count=halo_count,
-            )
+            counts = step(tile, c)
             if device_acc:
                 round_counts = counts if round_counts is None else round_counts + counts
             else:
                 self._counts += counts.cpu().numpy().astype(np.int64)
         if round_counts is not None:
             self._counts += round_counts.cpu().numpy().astype(np.int64)
-        self._store_tails(flows, H)
+
+    def _ac_round(self, flows, F: int, rel_all, longest: int, long_q: int) -> None:
+        """One ``ac`` round: the chunk loop with each lane's DFA state carried
+        on the device from chunk to chunk (a lane past its bytes holds its
+        state), then each flow's final state stored for the next round."""
+        states = np.zeros(F, np.int32)
+        for i, k in enumerate(flows):
+            states[i] = self._states.get(k, 0)
+        states_v = torch.from_numpy(states).to(self.matcher.device)
+        cac, dup = self.matcher.cac, self.matcher.ac.dup_map
+        fold = self.matcher._maybe_fold
+
+        def step(tile, c):
+            nonlocal states_v
+            rel = np.clip(rel_all - c, 0, self.width).astype(np.int32)
+            if self.sharded:
+                from multithreading_string_matching_tpu_torch.parallel.mesh import (
+                    count_chunk_sharded,
+                )
+
+                counts, states_v = count_chunk_sharded(cac, fold(tile), rel, states_v,
+                                                       self.mesh, dup_map=dup)
+            else:
+                counts, states_v = count_matches_ac(cac, fold(tile), rel,
+                                                    initial_states=states_v, dup_map=dup,
+                                                    return_states=True)
+            return counts
+
+        self._chunk_loop(flows, F, longest, long_q, step)
+        final = states_v.cpu().numpy()
+        for i, k in enumerate(flows):
+            self._states[k] = int(final[i])
+        self._pending.clear()
+        self._pending_bytes = 0
 
     def _store_tails(self, flows, H: int) -> None:
         """Each scanned flow's tail from the host bytes, never the device
@@ -540,9 +597,11 @@ class FlowStreamMatcher:
         Scans everything pending under the current rules, returns their
         final counts, and re-arms for ``matcher``: counts reset; tracked
         flows, eviction bookkeeping, reorder coverage and stream bases
-        persist.  Each flow's tail is trimmed to the new ``max_len - 1``, so
-        a match across the swap is found when it fits the shorter of the
-        two halos.  With ``collect_offsets``, undrained triples index the
+        persist.  A window flow's tail is trimmed to the new ``max_len -
+        1``, so a match across the swap is found when it fits the shorter of
+        the two halos; an ac flow's DFA state cannot map between automata
+        and restarts at the root (a match in progress at the swap is
+        missed).  With ``collect_offsets``, undrained triples index the
         old pattern set: reload raises after its flush until they are
         drained (the stream stays usable)."""
         self.flush()
@@ -554,8 +613,11 @@ class FlowStreamMatcher:
         final = self.counts()
         self.matcher = matcher
         self._counts = np.zeros(len(matcher.patterns), np.int64)
-        H = max(int(matcher.window.max_len) - 1, 1)
-        self._states = {k: (tail[-H:], min(fl, H)) for k, (tail, fl) in self._states.items()}
+        if self.engine == "window":
+            H = max(int(matcher.window.max_len) - 1, 1)
+            self._states = {k: (tail[-H:], min(fl, H)) for k, (tail, fl) in self._states.items()}
+        else:
+            self._states = {k: 0 for k in self._states}
         return final
 
     def evict(self, keys) -> None:

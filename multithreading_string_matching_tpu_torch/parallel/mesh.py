@@ -13,9 +13,9 @@ A mesh may name one device more than once: N shards on one card, or on the
 CPU, as the JAX package's tests run on 8 virtual CPU devices.
 
 Engines: ``'pallas'`` runs the kernels (their plain versions for CPU
-shards), ``'window'`` the plain window count on each shard's device.  The
-AC engine, and with it :func:`count_chunk_sharded`, is not yet ported
-(ROADMAP Queue 1 item 4, ``ops/scan.py``).
+shards), ``'window'`` the plain window count on each shard's device, and
+``'ac'`` the Aho-Corasick scan (``ops/scan.ac_scan``), which also carries
+flow-lane states across chunks (:func:`count_chunk_sharded`).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from multithreading_string_matching_tpu_torch.ops.cuda_window import canonical_device
+from multithreading_string_matching_tpu_torch.ops.scan import CompiledAC, ac_scan
 from multithreading_string_matching_tpu_torch.ops.window import window_count, window_count_halo_plain
 
 PACKET_AXIS = "packets"
@@ -34,9 +35,6 @@ PACKET_AXIS = "packets"
 # this, or its int32 totals could wrap (a position starts at most one match
 # per pattern).  Module-level so tests can lower it.
 SUMMARY_MAX_POSITIONS = 2**31
-
-_AC_REFUSAL = ("is not yet ported to the torch package (ROADMAP Queue 1 item 4: "
-               "ops/scan.py)")
 
 
 class Mesh:
@@ -142,9 +140,41 @@ def _staged_window(matcher, device):
     return tabs
 
 
-def count_chunk_sharded(cac, payloads, lengths, states, mesh: Mesh, *, dup_map=None):
-    """Carried-state AC chunks with flow lanes sharded: not yet ported."""
-    raise NotImplementedError(f"count_chunk_sharded (the sharded AC flow scan) {_AC_REFUSAL}")
+def _ac_shard(cac: CompiledAC, dev, p, l, states=None):
+    """``(unique counts, new states)`` of one shard's rows on ``dev`` (the
+    automaton's tables copied there when they live elsewhere)."""
+    same = canonical_device(dev) == canonical_device(cac.device)
+    c = cac if same else cac.to(dev)
+    if states is None:
+        states = torch.zeros(p.shape[0], dtype=torch.int32, device=dev)
+    return ac_scan(c, p, l, states)
+
+
+def count_chunk_sharded(cac: CompiledAC, payloads, lengths, states, mesh: Mesh, *,
+                        dup_map: Optional[np.ndarray] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Carried-state AC chunk scan with the flow lanes sharded over the
+    mesh: ``(counts, new_states)``, counts over unique patterns (or
+    dup-expanded with ``dup_map``) summed on the first shard's device, and
+    the int32[F] states after the chunk there too.  Each shard scans its
+    own lanes from their own states; the lane count must divide over the
+    mesh (the flow monitor's lane quantization guarantees it)."""
+    devs = list(mesh.devices.flat)
+    F = int(np.shape(payloads)[0])
+    if F % len(devs):
+        raise ValueError(f"{F} flow lanes do not divide over {len(devs)} shards")
+    rows = F // len(devs)
+    states = torch.as_tensor(states, dtype=torch.int32)
+    parts, outs = [], []
+    for d, (dev, p, l) in enumerate(_row_shards(np.asarray(payloads), np.asarray(lengths), mesh)):
+        st = states[d * rows:(d + 1) * rows].to(dev).contiguous()
+        counts, new = _ac_shard(cac, dev, p, l, st)
+        parts.append(counts)
+        outs.append(new.to(devs[0]))
+    counts = _sum(parts, devs[0])
+    if dup_map is not None:
+        counts = counts[torch.as_tensor(np.asarray(dup_map), dtype=torch.long, device=devs[0])]
+    return counts, torch.cat(outs)
 
 
 def count_flow_round_sharded(matcher, x2, eff2, ms2, mesh: Mesh, *, engine: str = "window"
@@ -188,16 +218,19 @@ def count_matches_sharded(
 ) -> np.ndarray:
     """Packet-sharded totals, equal to the one-device count.
 
+    ``engine='ac'`` (the JAX package's default; ``'kmp'`` runs as ``'ac'``,
+    as there) scans each shard with the automaton ``cac``;
     ``engine='window'`` (pass the ``WindowProgram`` as ``window``) runs the
     plain window count per shard; ``engine='pallas'`` (pass a tile-count
     surface, ``CudaWindowMatcher`` or ``CudaTableMatcher``, as
     ``pallas_matcher``) its kernels, on a copy bound to each shard's device.
-    ``engine='ac'``, the JAX package's default, is not yet ported and
-    raises; ``cac`` is then unused and may be ``None``."""
-    if engine in ("ac", "kmp"):
-        raise NotImplementedError(f"sharded engine {engine!r} {_AC_REFUSAL}")
-    if engine not in ("window", "pallas"):
-        raise ValueError(f"unknown sharded engine {engine!r}: expected window or pallas")
+    ``cac`` is unused by the window family and may be ``None`` there."""
+    if engine == "kmp":
+        engine = "ac"
+    if engine not in ("window", "pallas", "ac"):
+        raise ValueError(f"unknown sharded engine {engine!r}: expected ac, window or pallas")
+    if engine == "ac" and cac is None:
+        raise ValueError("pass the CompiledAC as cac for engine='ac'")
     if engine == "pallas" and pallas_matcher is None:
         raise ValueError("pass pallas_matcher= (a CudaWindowMatcher or CudaTableMatcher) "
                          "for engine='pallas'")
@@ -209,6 +242,8 @@ def count_matches_sharded(
         if engine == "pallas":
             parts.append(pallas_matcher.on_device(dev).count_tiles([(p, l)],
                                                                    expand_duplicates=False))
+        elif engine == "ac":
+            parts.append(_ac_shard(cac, dev, p, l)[0])
         else:
             parts.append(window_count(*window.tables(dev), p, l))
     counts = _sum(parts, mesh.devices.flat[0]).cpu().numpy()
@@ -223,7 +258,8 @@ def count_tile_sharded(matcher, payload: torch.Tensor, fill: torch.Tensor, mesh:
     first device, rows a multiple of the mesh size) with its row blocks
     counted on their shards and summed on the first device: the packed-tile
     pipeline's step (the JAX package's ``_sharded_count_pallas`` /
-    ``_sharded_count_window``).  A shard on the tile's own device reads its
+    ``_sharded_count_window`` / ``_sharded_count``: ``engine`` is
+    ``pallas``, ``window`` or ``ac``).  A shard on the tile's own device reads its
     rows in place; others get a device-to-device copy.  Nothing waits for
     the result."""
     devs = list(mesh.devices.flat)
@@ -237,6 +273,8 @@ def count_tile_sharded(matcher, payload: torch.Tensor, fill: torch.Tensor, mesh:
         if engine == "pallas":
             parts.append(matcher.kernels.on_device(dev).count_tiles([(p, l)],
                                                                    expand_duplicates=False))
+        elif engine == "ac":
+            parts.append(_ac_shard(matcher.cac, dev, p, l)[0])
         else:
             parts.append(window_count(*_staged_window(matcher, dev), p, l))
     return _sum(parts, devs[0])

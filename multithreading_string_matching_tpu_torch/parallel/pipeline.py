@@ -175,9 +175,10 @@ def count_pcap_streamed(
     (:func:`_iter_extracted`); counts are identical.
 
     ``engine`` defaults to the matcher's engine: ``pallas`` (the kernels:
-    on ``device="cpu"`` their plain versions) or ``window`` (the plain
-    window count); ``ac``/``kmp`` are not yet ported and raise.  Pass a
-    dict as ``stats`` to receive the engine that ran and the packet /
+    on ``device="cpu"`` their plain versions), ``window`` (the plain window
+    count), ``ac`` or ``kmp`` (the DFA scan kernels, ops/scan.py; sharded,
+    ``kmp`` runs as ``ac``, as in the JAX package).  Pass a dict as
+    ``stats`` to receive the engine that ran and the packet /
     valid-payload / byte totals.
 
     Payloads wider than ``pack_width`` go through ``matcher.count``;
@@ -306,8 +307,9 @@ class PackedTileCounter:
                 matcher, mesh, engine)
             device = mesh.devices.flat[0]
         else:
-            # ac/kmp: not yet ported, raises NotImplementedError.
             engine = matcher._resolve_engine(engine)
+            if sharded and engine == "kmp":
+                engine = "ac"  # per-pattern DFAs have no sharded path; AC is exact
             if sharded:
                 # Every tile's rows split over the mesh; UNIQUE-pattern
                 # counts accumulate on the first device (dup expansion
@@ -328,8 +330,11 @@ class PackedTileCounter:
                 device = mesh.devices.flat[0]
             elif engine == "pallas":
                 self._tile_fn = lambda p, l: self.matcher.kernels.count_tiles([(p, l)])
-            else:
+            elif engine == "window":
                 self._tile_fn = _window_tile_fn(matcher, device)
+            else:
+                fn = matcher._engine_fn(engine)
+                self._tile_fn = lambda p, l: fn(p, l, per_packet=False)
         self.engine = engine
         self.tile_rows = tile_rows
         self.stager = TileStager(device, tile_rows, pack_width)
@@ -723,9 +728,11 @@ def count_pcap_pipelined(
     through a :class:`TileStager` (slots sized to the widest batch seen)
     and counted with the matcher's RESOLVED engine without waiting: one
     ``count_tiles`` launch (the window or table kernels) for ``pallas``,
-    the plain window count for ``window``.  The int32 device accumulator
+    one DFA scan launch for ``ac``/``kmp`` (the JAX package takes its
+    window form for these; the counts are the same), the plain window
+    count for ``window``.  The int32 device accumulator
     drains to host int64 every ``DRAIN_POSITIONS`` scanned positions."""
-    use_pallas = matcher._resolve_engine(None) == "pallas"
+    engine = matcher._resolve_engine(None)
     total = None          # device-resident int32 accumulator
     host_total = None     # int64 accumulator drained periodically
     pos_since_drain = 0   # scanned positions bound the per-pattern growth
@@ -760,9 +767,14 @@ def count_pcap_pipelined(
         batch_lists = (_extract(c) for c in chunks)
 
     stager = TileStager(matcher.device, batch_size, 8)
-    if use_pallas:
+    if engine == "pallas":
         def count(p, l):
             return matcher.kernels.count_tiles([(p, l)])
+    elif engine in ("ac", "kmp"):
+        fn = matcher._engine_fn(engine)
+
+        def count(p, l):
+            return fn(p, l, per_packet=False)
     else:
         count = _window_tile_fn(matcher, stager.device)
 

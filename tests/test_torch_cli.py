@@ -88,9 +88,13 @@ def test_match_text_report_and_errors(capture, capsys, monkeypatch):
     assert out[0].startswith("Printing the number of appereances")
     assert pt_main(["match", "--pcap", str(capture) + ".missing", "--patterns", str(STANDIN)]) == 1
     assert "error opening file" in capsys.readouterr().err
-    assert pt_main(["match", "--pcap", str(capture), "--patterns", str(STANDIN),
-                    "--engine", "ac"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    # The DFA engines print the report the default engine printed.
+    for engine in ("ac", "kmp"):
+        assert pt_main(["match", "--pcap", str(capture), "--patterns", str(STANDIN),
+                        "--engine", engine]) == 0
+        got = capsys.readouterr().out.splitlines()
+        assert [ln for ln in got if not ln.startswith("Elapsed")] == [
+            ln for ln in out if not ln.startswith("Elapsed")]
     assert pt_main(["serial"]) == 1
     assert pt_main(["bogus"]) == 1
     with pytest.raises(SystemExit):

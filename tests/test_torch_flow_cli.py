@@ -1,9 +1,9 @@
 """The torch package's ``match --flows`` and ``match --flows --stream``
 against the JAX package's CLI: counts, flow and packet totals, stream bytes,
 the text report and a SIGHUP rules reload, on the CPU (``MSM_DEVICE=cpu``);
-the options not yet ported exit 1 (and the packet `--stream` and the flow
-attribution options, now ported, give what the one-shot match and the JAX
-CLI give).
+the options once refused here (the packet `--stream`, the flow attribution
+options, the AC flow engine that `--flows --stream` takes by default on the
+CPU) give what the one-shot match and the JAX CLI give.
 """
 
 import json
@@ -129,13 +129,14 @@ UNPORTED_CASES = [
     (["--flows", "--offsets"], "equal to the JAX CLI"),
     (["--flows", "--dump-matches", "x.pcap"], "equal to the JAX CLI"),
     (["--flows", "--sharded", "--offsets"], "equal to the JAX CLI"),
-    (["--flows", "--stream", "--host-workers", "2"], "unported"),
+    (["--flows", "--stream", "--host-workers", "2"], "equal to the JAX CLI"),
     # JAX refuses this combination before anything runs; the port now does too.
     (["--flows", "--stream", "--distributed"], "refused like JAX"),
     # The packet stream is ported: it counts what the one-shot match counts.
     (["--stream"], "ported"),
-    (["--flows", "--stream"], "unported"),  # the CPU default picks the AC flow engine
-    (["--flows", "--stream", "--engine", "ac"], "unported"),
+    # The CPU default picks the AC flow engine, now ported.
+    (["--flows", "--stream"], "equal to the JAX CLI"),
+    (["--flows", "--stream", "--engine", "ac"], "equal to the JAX CLI"),
 ]
 
 
@@ -162,13 +163,11 @@ def test_unported_flow_options_exit_1(capture, capsys, monkeypatch, tmp_path, fl
             jax_main(argv)
         assert str(got.value) == str(want.value)
         assert str(got.value).startswith("--flows --stream does not compose with --distributed")
-    elif outcome == "ported":
+    else:
+        assert outcome == "ported"
         streamed = _json(pt_main, argv + ["--json"], capsys)["counts"]
         one_shot = _json(pt_main, argv[:-1] + ["--json"], capsys)["counts"]
         assert streamed == one_shot and sum(streamed) > 0
-    else:
-        assert pt_main(argv) == 1
-        assert "not yet ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags", [["--flows", "--per-packet", "--json"], ["--reorder"],

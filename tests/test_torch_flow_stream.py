@@ -294,13 +294,20 @@ def test_reload_equals_jax(captures):
 
 def test_unported_options_raise(captures):
     m = Matcher(PATS, device="cpu")
-    with pytest.raises(NotImplementedError, match="ops/scan.py"):
-        FlowStreamMatcher(m, "tcp")  # engine="ac" is the JAX default
-    with pytest.raises(NotImplementedError, match="ops/scan.py"):
-        FlowStreamMatcher(m, "tcp", sharded=True)  # sharded AC lanes
+    pcap_p, pcap_j = read_pcap(captures["v4"]), jax_read(captures["v4"])
+    # The AC engine (the JAX default), once refused here, unsharded and with
+    # sharded lanes, counts what the JAX package's does.
+    for kw in (dict(), dict(sharded=True)):
+        got, want = FlowStreamMatcher(m, "tcp", scan_bytes=64, **kw), JaxFlowStream(
+            JaxMatcher(PATS), "tcp", scan_bytes=64, **kw)
+        assert got.engine == "ac"
+        _feed(got, pcap_p, 5, slice_pcap)
+        _feed(want, pcap_j, 5, jax_slice)
+        got.flush()
+        want.flush()
+        assert got.counts().tolist() == want.counts().tolist() and got.counts().sum() > 0
     # collect_offsets (once refused here) drains what the JAX package's does;
     # the AC engine with it is refused with the JAX package's ValueError.
-    pcap_p, pcap_j = read_pcap(captures["v4"]), jax_read(captures["v4"])
     drained = []
     for fs_cls, mm, pc, slicer in ((FlowStreamMatcher, m, pcap_p, slice_pcap),
                                    (JaxFlowStream, JaxMatcher(PATS), pcap_j, jax_slice)):

@@ -804,3 +804,121 @@ def test_matcher_find_matches_on_card_equals_cpu(cuda_device, monkeypatch, pats,
     monkeypatch.setattr(mesh_mod, "SUMMARY_MAX_POSITIONS", 64 * 300 + 1)
     assert np.array_equal(gpu.find_matches(payloads, lengths), want)
     assert cw.LAUNCHES["window_find"] == before + 1 + 11  # ceil(700 / 64) slices
+
+
+# -- the DFA scans (csrc/scan.cu) ------------------------------------------
+
+from multithreading_string_matching_tpu_torch.models.aho_corasick import AhoCorasick  # noqa: E402
+from multithreading_string_matching_tpu_torch.models.kmp import stack_kmp_dfas  # noqa: E402
+from multithreading_string_matching_tpu_torch.ops import scan as sc  # noqa: E402
+
+_r = np.random.default_rng(21)
+# name: (patterns, seed, rows, width, alphabet)
+SCAN_CASES = {
+    "dups": (DUPS, 1, 64, 200, b"abc\x00"),
+    "nul": (NUL, 2, 40, 61, b"ab\x00"),
+    "standin": (None, 3, 300, 700, b"LinuxHTP /\x00abc"),
+    "unaligned-width": (DUPS, 4, 33, 13, b"abc"),
+    "many-lanes": (DUPS, 5, 5000, 24, b"abc"),
+    "long-99": ([b"ab" * 49 + b"c", b"abab", b"c"], 6, 30, 400, b"abc"),
+    "mixed-k": (MIXED_K, 7, 64, 300, b"abc"),
+    # More than 65,536 states: an int32 table read from device memory.
+    "int32-table": ([bytes(_r.integers(97, 123, size=256).tolist()) for _ in range(300)],
+                    8, 64, 600, b"abcdefghijklmnopqrstuvwxyz"),
+}
+
+
+def _scan_case(case, dev):
+    pats, seed, n, L, alphabet = SCAN_CASES[case]
+    pats = load_patterns(STANDIN) if pats is None else pats
+    p, l = _tile(seed, n, L, alphabet, dev, plant=pats)
+    l = (l.cpu() + torch.from_numpy(np.random.default_rng(seed).integers(-8, 9, n))).int().to(dev)
+    return pats, p, l
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_ac_scan_equals_plain(cuda_device, case):
+    """Totals, rows and final states, from the root and from carried
+    states (some outside the table), over lengths <= 0 and past the width."""
+    pats, p, l = _scan_case(case, cuda_device)
+    ac = AhoCorasick.build(pats)
+    c_gpu = sc.CompiledAC.from_automaton(ac, cuda_device)
+    c_cpu = sc.CompiledAC.from_automaton(ac, "cpu")
+    assert c_gpu.table.dtype == (torch.int16 if ac.goto.shape[0] <= 65536 else torch.int32)
+    rng = np.random.default_rng(1)
+    init = rng.integers(-2, ac.goto.shape[0] + 3, size=p.shape[0]).astype(np.int32)
+    for states in (np.zeros(p.shape[0], np.int32), init):
+        for per_packet in (False, True):
+            before = sc.LAUNCHES["ac_scan"]
+            got, got_st = sc.ac_scan(c_gpu, p, l, torch.from_numpy(states).to(cuda_device),
+                                     per_packet=per_packet)
+            torch.cuda.synchronize()
+            assert sc.LAUNCHES["ac_scan"] == before + 1
+            want, want_st = sc.ac_scan(c_cpu, p.cpu(), l.cpu(), torch.from_numpy(states),
+                                       per_packet=per_packet)
+            assert torch.equal(got.cpu(), want) and torch.equal(got_st.cpu(), want_st)
+    assert want.sum() > 0
+
+
+@pytest.mark.parametrize("case", ["dups", "nul", "standin", "long-99", "unaligned-width"])
+def test_kmp_scan_equals_plain(cuda_device, case):
+    pats, p, l = _scan_case(case, cuda_device)
+    dfas, accept = stack_kmp_dfas(pats)
+    k_gpu = sc.CompiledKMP.from_numpy(dfas, accept, cuda_device)
+    k_cpu = sc.CompiledKMP.from_numpy(dfas, accept)
+    for per_packet in (False, True):
+        before = sc.LAUNCHES["kmp_scan"]
+        got = sc.kmp_scan(k_gpu, p, l, per_packet=per_packet)
+        torch.cuda.synchronize()
+        assert sc.LAUNCHES["kmp_scan"] == before + 1
+        want = sc.kmp_scan(k_cpu, p.cpu(), l.cpu(), per_packet=per_packet)
+        assert torch.equal(got.cpu(), want) and want.sum() > 0
+
+
+def test_scan_wrappers_refuse_bad_inputs(cuda_device):
+    ac = AhoCorasick.build(DUPS)
+    c = sc.CompiledAC.from_automaton(ac, cuda_device)
+    p, l = _tile(1, 8, 32, b"ab", cuda_device)
+    st = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        sc.ac_scan(sc.CompiledAC.from_automaton(ac, "cpu"), p, l, st)  # tables elsewhere
+    with pytest.raises(TypeError):
+        sc.ac_scan(c, p, l.long(), st)
+    with pytest.raises(ValueError):
+        sc.ac_scan(c, p, l, st[:4])
+    with pytest.raises(ValueError):
+        sc.ac_scan(c, p[:, ::2], l, st)  # not contiguous
+    dfas, accept = stack_kmp_dfas(DUPS)
+    with pytest.raises(ValueError):
+        sc.kmp_scan(sc.CompiledKMP.from_numpy(dfas, accept), p, l)
+    empty = torch.zeros((0, 32), dtype=torch.uint8, device=cuda_device)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    out, new = sc.ac_scan(c, empty, none, none)
+    assert out.shape == (len(ac.unique_patterns),) and not out.any() and new.numel() == 0
+
+
+@pytest.mark.parametrize("engine", ["ac", "kmp"])
+def test_matcher_dfa_engines_on_card_equal_cpu(cuda_device, tmp_path, engine):
+    """``Matcher(engine='ac'|'kmp', device='cuda')`` equals ``device='cpu'``:
+    counts, per-packet rows, a count_pcap and carried-state chunks."""
+    from multithreading_string_matching_tpu_torch.io.synth import synth_udp_pcap
+
+    pats = load_patterns(STANDIN)
+    path = tmp_path / "cap.pcap"
+    synth_udp_pcap(path, 600, payload_len=400, payload_len_jitter=300, patterns=pats,
+                   plant_rate=0.4, seed=3)
+    gpu = Matcher(pats, engine=engine, device=cuda_device)
+    cpu = Matcher(pats, engine=engine, device="cpu")
+    before = sc.LAUNCHES[f"{engine}_scan"]
+    got = gpu.count_pcap(path)
+    assert sc.LAUNCHES[f"{engine}_scan"] > before
+    assert np.array_equal(got, cpu.count_pcap(path)) and got.sum() > 100
+    p, l = _tile(4, 200, 300, b"LinuxHTP ", "cpu", plant=pats)
+    p, l = p.numpy(), l.numpy()
+    assert np.array_equal(gpu.count(p, l, per_packet=True), cpu.count(p, l, per_packet=True))
+    st_g, st_c = gpu.streaming_state(200), cpu.streaming_state(200)
+    for c in range(0, 300, 64):
+        cg, st_g = gpu.count_chunk(p[:, c:c + 64], l - c, st_g)
+        cc, st_c = cpu.count_chunk(p[:, c:c + 64], l - c, st_c)
+        assert np.array_equal(cg, cc)
+    assert torch.equal(st_g.cpu(), st_c)

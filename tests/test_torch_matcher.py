@@ -158,8 +158,13 @@ def test_empty_and_zero_row_batches():
 
 @pytest.mark.parametrize("engine", ["ac", "kmp"])
 def test_unported_engines_raise(batch, engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _cpu(engine=engine).count(batch.payloads, batch.lengths)
+    """The DFA engines, once refused here, count what the JAX package's do
+    (totals and per-packet rows)."""
+    m, jm = _cpu(engine=engine), JaxMatcher(PATTERNS, engine=engine)
+    for per_packet in (False, True):
+        got = m.count(batch.payloads, batch.lengths, per_packet=per_packet)
+        want = np.asarray(jm.count(batch.payloads, batch.lengths, per_packet=per_packet))
+        assert got.dtype == want.dtype and np.array_equal(got, want) and got.sum() > 100
 
 
 def test_explain_names_the_cuda_kernel(monkeypatch):

@@ -171,15 +171,27 @@ def test_count_flow_round_sharded_equals_jax(engine, ndev):
 
 
 def test_ac_engine_and_count_chunk_sharded_raise():
-    payloads, lengths = _batch(6, 8, 16)
-    mesh = pmesh.make_mesh(["cpu"] * 2)
+    """The AC engine and the sharded carried-state chunk (once refused here)
+    give the JAX package's counts and states; the guards raise."""
+    payloads, lengths = _batch(6, 8, 16, pats=PATS)
+    m, jm = Matcher(PATS, device="cpu"), JaxMatcher(PATS)
+    jmesh2, mesh = _meshes(2)
+    want = np.asarray(jmesh.count_matches_sharded(jm.cac, payloads, lengths, jmesh2,
+                                                  dup_map=jm.ac.dup_map))
+    assert want.sum() > 0
     for engine in ("ac", "kmp"):
-        with pytest.raises(NotImplementedError, match="ops/scan.py"):
-            pmesh.count_matches_sharded(None, payloads, lengths, mesh, engine=engine)
-    with pytest.raises(NotImplementedError, match="ops/scan.py"):
-        pmesh.count_matches_sharded(None, payloads, lengths, mesh)  # the JAX default, ac
-    with pytest.raises(NotImplementedError, match="ops/scan.py"):
-        pmesh.count_chunk_sharded(None, payloads, lengths, np.zeros(8, np.int32), mesh)
+        got = pmesh.count_matches_sharded(m.cac, payloads, lengths, mesh, engine=engine,
+                                          dup_map=m.ac.dup_map)
+        assert np.array_equal(got, want), engine
+    got = pmesh.count_matches_sharded(m.cac, payloads, lengths, mesh, dup_map=m.ac.dup_map)
+    assert np.array_equal(got, want)  # the JAX default, ac
+    states = np.random.default_rng(2).integers(0, m.cac.num_states, 8).astype(np.int32)
+    jc, js = jmesh.count_chunk_sharded(jm.cac, payloads, lengths - 5, states, jmesh2)
+    pc, ps_ = pmesh.count_chunk_sharded(m.cac, payloads, lengths - 5, states, mesh)
+    assert np.array_equal(pc.numpy(), np.asarray(jc)) and np.array_equal(ps_.numpy(),
+                                                                          np.asarray(js))
+    with pytest.raises(ValueError, match="cac"):
+        pmesh.count_matches_sharded(None, payloads, lengths, mesh)
     with pytest.raises(ValueError, match="pallas_matcher"):
         pmesh.count_matches_sharded(None, payloads, lengths, mesh, engine="pallas")
     with pytest.raises(ValueError, match="window"):

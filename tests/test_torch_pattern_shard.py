@@ -233,8 +233,8 @@ def test_filtered_tables_match_plain(monkeypatch):
 
 def test_ac_kmp_remap_and_bad_engine():
     """engine='ac'/'kmp', and a matcher built with engine='ac' or 'kmp',
-    count on the window family (the port's matcher itself refuses them);
-    a bogus engine raises ValueError."""
+    count on the window family (the matcher itself counts them with its
+    DFA scans, to the same counts); a bogus engine raises ValueError."""
     rng = np.random.default_rng(66)
     payloads, lengths = _mk_batch(rng, n=8, L=64)
     m, jm = _both([b"ab", b"bc"])
@@ -248,8 +248,7 @@ def test_ac_kmp_remap_and_bad_engine():
         assert ps._resolve_engine(mo, None) == jps._resolve_engine(jmo, None) == "window"
         got = ps.count_matches_pattern_sharded(mo, payloads, lengths, _pmesh(2))
         assert np.array_equal(got, want), own
-        with pytest.raises(NotImplementedError, match="ops/scan.py"):
-            mo.count(payloads, lengths)
+        assert np.array_equal(mo.count(payloads, lengths), want), own
     with pytest.raises(ValueError, match="pattern-shard engine"):
         ps.count_matches_pattern_sharded(m, payloads, lengths, _pmesh(2), engine="bogus")
 

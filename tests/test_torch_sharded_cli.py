@@ -138,7 +138,8 @@ def test_unported_sharded_options_exit_1(files, capsys, monkeypatch, tmp_path, f
 def test_sharded_ac_engine(files, capsys, monkeypatch):
     """``--engine ac``: the pattern axis remaps to the window family as the
     JAX package does (same counts, same ``sharded_remap``); the packet axis
-    needs the AC scan, which is not yet ported, and exits 1."""
+    runs the AC scan on each shard, to the JAX CLI's counts and execution
+    keys."""
     monkeypatch.setenv("MSM_DEVICE", "cpu")
     base = ["match", "--pcap", str(files["cap"]), "--patterns", str(files["standin"]), "--json",
             "--engine", "ac", "--sharded"]
@@ -146,8 +147,11 @@ def test_sharded_ac_engine(files, capsys, monkeypatch):
     want = _json(jax_main, base + ["--shard-axis", "patterns"], capsys)
     assert got["counts"] == want["counts"]
     assert got["execution"]["sharded_remap"] == want["execution"]["sharded_remap"] == "ac->window"
-    assert pt_main(base + ["--shard-axis", "packets"]) == 1
-    assert "ops/scan.py" in capsys.readouterr().err
+    got = _json(pt_main, base + ["--shard-axis", "packets"], capsys)
+    want = _json(jax_main, base + ["--shard-axis", "packets"], capsys)
+    assert got["counts"] == want["counts"] and sum(got["counts"]) > 0
+    assert {k: v for k, v in got["execution"].items() if k != "device"} == want["execution"]
+    assert got["execution"]["engine_resolved"] == "ac"
 
 
 # -- flows --------------------------------------------------------------------
@@ -271,7 +275,7 @@ def test_sharded_flow_stream_default_mesh_and_refusals():
     m = Matcher(PATS, device="cpu")
     fs = FlowStreamMatcher(m, "tcp", engine="window", sharded=True)
     assert fs.mesh == make_mesh(device_type="cpu") and fs._n_dev == 1
-    with pytest.raises(NotImplementedError, match="ops/scan.py"):
-        FlowStreamMatcher(m, "tcp", engine="ac", sharded=True)
+    fs = FlowStreamMatcher(m, "tcp", engine="ac", sharded=True)  # once refused here
+    assert fs.engine == "ac" and fs.mesh == make_mesh(device_type="cpu")
     with pytest.raises(ValueError, match="mesh"):
         FlowStreamMatcher(m, "tcp", engine="window", mesh=make_mesh(["cpu"]))
