@@ -22,7 +22,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    inside keys, a filter word that occurs twice in its pattern, U = 1 and
    U = 3,072 at K = 8, and 9,000 patterns (three hash chunks).  A table of
    nine probe masks is refused by the wrappers (``ValueError``) and counted
-   exactly by the C entry point.
+   exactly by the C entry point.  The DFA scans ``ac_scan`` and
+   ``kmp_scan`` on 12 cases (see phase 11), each from the root and from
+   carried in-table states with dead lanes in every segment, at the AC
+   kernel's own segment size and at small ones (warm-ups across every
+   boundary, patterns longer than a segment, two cases planted across
+   every boundary at offsets -40 .. +40), KMP at the fewest pattern groups
+   and at one pattern a group, one tile and a list of three tiles in one
+   launch; start states outside the table (S, S + 7, -1, -5) are refused
+   by ``ac_scan``, ``ac_scan_tiles`` and ``count_matches_ac`` with nothing
+   launched.
 3. The main path at a real size: a seeded 100,000-packet capture of
    ~1 KB payloads (~100 MB) with the 97-token stand-in pattern set, counted
    by ``Matcher(device="cuda").count_pcap``, per packet on its first 8,192
@@ -142,25 +151,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    patterns, uint16 and int32 tables in shared and device memory, a set of
    more than 65,536 states, duplicates and a 99-byte pattern).  With the
    launch counters reset just before each step: ``Matcher(engine='ac')``
-   and ``Matcher(engine='kmp')`` ``count_pcap`` on phase 3's capture give
-   phase 3's counts and launch only their kernel; per packet on the first
+   and ``Matcher(engine='kmp')`` ``count_pcap`` on phase 3's capture and
+   ``count_prepared`` on its 53 resident tiles give phase 3's counts in one
+   launch of their kernel each (the tile list); per packet on the first
    8,192 rows they equal phase 3's rows, the plain version on the card and
    a pure-Python count; ``count_chunk`` over phase 3's rows in 2,048- and
    512-byte chunks gives phase 3's counts; ``engine='ac'`` on phase 5's
-   3,072 rules gives phase 5's counts, and ``kmp`` at 3,072 rules on the
-   first 8,192 rows phase 5's rows; ``match --engine ac|kmp [--stream]
-   [--sharded --shard-axis packets] --json`` gives phase 3's counts with
-   the JAX CLI's ``execution`` keys; ``FlowStreamMatcher(engine='ac')``
-   (its flows revived round after round from their stored states), ``match
-   --flows --stream --engine ac``, ``count_flows_chunked`` and a 2-shard
-   lane mesh give phase 6's counts, and the reordered capture the window
-   engine's and the pure-Python counts.  Times: each kernel over phase 3's
-   resident tiles (median of 20) and its device time queued alone, against
-   its bound, the kernel and its plain version on the first 8,192 rows,
-   beside them the window and filter kernels over the same tiles; ``ac`` over
-   phase 5's tiles beside the filter and window kernels there; the AC flow
-   stream and its rounds; the walls of ``match --engine pallas|ac|kmp
-   [--stream]`` (median of 3, in turns).
+   3,072 rules gives phase 5's counts in one launch (``count_pcap`` and
+   ``count_prepared``), and ``kmp`` at 3,072 rules on the first 8,192 rows
+   phase 5's rows; ``match --engine ac|kmp [--stream] [--sharded
+   --shard-axis packets] --json`` gives phase 3's counts with the JAX CLI's
+   ``execution`` keys (one launch one-shot); ``FlowStreamMatcher(engine=
+   'ac')`` (its flows revived round after round from their stored states),
+   ``match --flows --stream --engine ac``, ``count_flows_chunked`` and a
+   2-shard lane mesh give phase 6's counts, and the reordered capture the
+   window engine's and the pure-Python counts.  Times: each kernel's pass
+   over phase 3's resident tiles in one launch (``ac_scan_tiles``,
+   ``kmp_scan_tiles``: median of 20, and the device time queued alone)
+   beside the same pass at one launch a tile, against its bound; ``kmp``'s
+   groups at four fill-lane settings; the kernel and its plain version on
+   the first 8,192 rows, beside them the window and filter kernels over the
+   same tiles; ``ac`` over phase 5's tiles in one launch and one a tile
+   beside the filter and window kernels there; the AC flow stream and its
+   rounds; the walls of ``match --engine pallas|ac|kmp [--stream]`` (median
+   of 3, in turns).
 
 The line before the last is one JSON object with a record per kernel, each
 with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -1909,8 +1923,9 @@ def attribution_phase(dev, card: str, cw, ct, matcher, pat_file, cap, batch, cou
 # -- the DFA scans (phases 2 and 11) -------------------------------------------
 
 # Integer operations the bounds count: ac_scan, per scanned byte, the table
-# index (shift, or) and the emitting-state bitmap test (shift, and); kmp_scan,
-# per byte and pattern, the index and the accept compare-and-add.  Loads are
+# index (shift, or), the mask that drops the emit bit and its test (the
+# segments' warm-up bytes are the kernel's own cost, not the function's);
+# kmp_scan, per byte and pattern, the index and the accept compare-and-add.  Loads are
 # not operations; the table's bytes are counted once, as an input.
 AC_OPS_PER_BYTE = 4
 KMP_OPS_PER_BYTE = 3
@@ -1920,34 +1935,62 @@ DUPS = [b"ab", b"aba", b"b", b"abab", b"ca", b"ab", b"abcdefgh", b"abcde"]
 NULS = [b"a\x00b", b"\x00\x00", b"ab", b"\x00", b"b\x00"]
 
 
+BOUNDARY = [b"abcdefghij", b"hij", b"cdefg", b"a", b"jab", b"defghijabc", b"ab" * 20]
+
+
+def boundary_scan_tile(rng, L: int, seg: int):
+    """Rows that plant the 40-byte and 10-byte patterns of ``BOUNDARY`` across
+    every ``seg``-byte segment boundary, at offsets -D .. +D from it (D = 40,
+    the automaton's depth), and lengths -8 .. L + 8."""
+    letters = np.frombuffer(b"abcdefghij", np.uint8)
+    n = 2 * 40 + 1
+    p = letters[rng.integers(0, len(letters), size=(n, L))]
+    for r in range(n):
+        for b in range(seg, L, seg):
+            for pat, start in ((BOUNDARY[-1], b - 40 + r), (BOUNDARY[0], b - 10 + r % 21)):
+                if 0 <= start and start + len(pat) <= L:
+                    p[r, start:start + len(pat)] = np.frombuffer(pat, np.uint8)
+    return p, rng.integers(-8, L + 9, size=n).astype(np.int32)
+
+
 def scan_cases(rng, patterns):
-    """(name, patterns, payload, lengths, force_int32): rows not zero past
-    their lengths, lengths from -8 to 8 past the width."""
+    """(name, patterns, payload, lengths, force_int32, segment sizes): rows
+    not zero past their lengths, lengths from -8 to 8 past the width.  The
+    segment sizes are those ``ac_scan`` runs the case at besides its own
+    (None): small ones put warm-ups across every boundary and make patterns
+    longer than a segment."""
     long_states = [bytes(rng.integers(97, 123, size=256).tolist()) for _ in range(300)]
     mid = rule_set(SEED + 7, 400, lo=8, hi=24)
     out = []
-    for name, pats, n, L, alphabet, force in (
-        ("dups", DUPS, 64, 200, b"abc\x00", False),
-        ("nul", NULS, 48, 61, b"ab\x00", False),
-        ("unaligned-width-13", DUPS, 33, 13, b"abc", False),
-        ("standin-uint16-shared", patterns, 1024, 1280, ALNUM + b" /:.", False),
-        ("uint16-device-memory", mid, 256, 600, ALNUM, False),
-        ("int32-shared", DUPS, 64, 300, b"abc", True),
-        ("int32-65536-plus-states", long_states, 64, 600, b"abcdefghijklmnopqrstuvwxyz", False),
-        ("many-lanes", DUPS, 20000, 40, b"abc", False),
-        ("99-byte", [b"ab" * 49 + b"c", b"abab", b"c", b"abab"], 40, 400, b"abc", False),
-        ("kmp-int32-300-byte", [b"x" * 300, b"xy", b"y"], 24, 700, b"xy", False),
+    for name, pats, n, L, alphabet, force, segs in (
+        ("dups", DUPS, 64, 200, b"abc\x00", False, (16, 23)),
+        ("nul", NULS, 48, 61, b"ab\x00", False, (16,)),
+        ("unaligned-width-13", DUPS, 33, 13, b"abc", False, (5,)),
+        ("standin-uint16-shared", patterns, 1024, 1280, ALNUM + b" /:.", False, (16, 48)),
+        ("uint16-device-memory", mid, 256, 600, ALNUM, False, (32,)),
+        ("int32-shared", DUPS, 64, 300, b"abc", True, (16,)),
+        ("int32-65536-plus-states", long_states, 64, 600, b"abcdefghijklmnopqrstuvwxyz", False,
+         (64,)),
+        ("many-lanes", DUPS, 20000, 40, b"abc", False, (16,)),
+        ("99-byte", [b"ab" * 49 + b"c", b"abab", b"c", b"abab"], 40, 400, b"abc", False, (32,)),
+        ("kmp-int32-300-byte", [b"x" * 300, b"xy", b"y"], 24, 700, b"xy", False, (64,)),
     ):
         p, ln = planted_tile(rng, pats, n, L, alphabet)
         ln = (ln.astype(np.int64) + rng.integers(-8, 9, size=n)).astype(np.int32)
-        out.append((name, pats, p, ln, force))
+        out.append((name, pats, p, ln, force, segs))
+    for seg in (16, 64):
+        p, ln = boundary_scan_tile(rng, 600, seg)
+        out.append((f"segment-boundaries-{seg}", BOUNDARY, p, ln, False, (seg,)))
     return out
 
 
 def scan_checks(dev, compare, sc) -> None:
     """Phase 2's DFA part: ac_scan (totals, rows, final states; from the root
-    and from carried states, some outside the table) and kmp_scan (totals,
-    rows) against their plain versions on the same CUDA tensors."""
+    and from carried in-table states with dead lanes, at its own segment
+    size and at small ones) and kmp_scan (totals, rows; at the fewest
+    pattern groups and at one pattern a group) against their plain versions
+    on the same CUDA tensors, one tile and as a list of tiles in one launch;
+    and the refusal of start states outside the table."""
     import torch
 
     from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
@@ -1957,7 +2000,7 @@ def scan_checks(dev, compare, sc) -> None:
     rng = np.random.default_rng(SEED + 8)
     patterns = load_patterns(pathlib.Path(__file__).resolve().parent / (
         "multithreading_string_matching_tpu_torch/data/strings_standin.txt"))
-    for name, pats, payload, lengths, force in scan_cases(rng, patterns):
+    for name, pats, payload, lengths, force, segs in scan_cases(rng, patterns):
         p = torch.from_numpy(payload).to(dev)
         ln = torch.from_numpy(lengths).to(dev)
         n = p.shape[0]
@@ -1971,30 +2014,87 @@ def scan_checks(dev, compare, sc) -> None:
         finally:
             sc.UINT16_STATES = saved
         built = time.perf_counter() - t0
-        states = rng.integers(-2, ac.goto.shape[0] + 3, size=n).astype(np.int32)
+        # Carried states drawn from the table, the dead state among them (a
+        # dead lane spans every segment of its row).
+        states = rng.integers(0, cac.dead + 1, size=n).astype(np.int32)
+        states[::5] = cac.dead
         found = 0
         for label, init in (("root", np.zeros(n, np.int32)), ("carried", states)):
             st = torch.from_numpy(init).to(dev)
             for per_packet in (False, True):
-                got, got_st = sc.ac_scan(cac, p, ln, st, per_packet=per_packet)
                 want, want_st = sc.ac_scan_plain(cac, p, ln, st, per_packet=per_packet)
-                compare("ac_scan", got, want, f"{name} {label} per_packet={per_packet}")
-                compare("ac_scan", got_st, want_st, f"{name} {label} states")
                 found = max(found, int(want.sum()))
+                for seg in (None, *segs):
+                    got, got_st = sc.ac_scan(cac, p, ln, st, per_packet=per_packet,
+                                             seg_bytes=seg)
+                    what = f"{name} {label} per_packet={per_packet} segments={seg}"
+                    compare("ac_scan", got, want, what)
+                    compare("ac_scan", got_st, want_st, f"{what} states")
         check(found > 0, f"ac_scan case {name} counted nothing")
         check(cac.table.dtype == (torch.int32 if force or ac.goto.shape[0] > 65536
                                   else torch.int16), f"{name}: table {cac.table.dtype}")
+        # A list of three tiles of other widths, in one launch.
+        cut = [0, n // 3, n // 2, n]
+        tiles = [(p[a:b, : max(1, p.shape[1] - 5 * k)].contiguous(), ln[a:b].contiguous())
+                 for k, (a, b) in enumerate(zip(cut[:-1], cut[1:]))]
+        tstates = [torch.from_numpy(states[a:b]).to(dev) for a, b in zip(cut[:-1], cut[1:])]
+        for per_packet in (False, True):
+            before = sc.LAUNCHES["ac_scan"]
+            got, got_st = sc.ac_scan_tiles(cac, tiles, per_packet=per_packet, states=tstates)
+            check(sc.LAUNCHES["ac_scan"] == before + 1, f"{name}: the tile list took "
+                  f"{sc.LAUNCHES['ac_scan'] - before} launches")
+            want = [sc.ac_scan_plain(cac, tp, tl, ts, per_packet=per_packet)
+                    for (tp, tl), ts in zip(tiles, tstates)]
+            compare("ac_scan", got, torch.cat([w[0] for w in want]) if per_packet
+                    else sum(w[0] for w in want), f"{name} tile list per_packet={per_packet}")
+            for g, w in zip(got_st, want):
+                compare("ac_scan", g, w[1], f"{name} tile list states")
+        # States outside the table: refused, nothing launched.
+        for bad in (cac.num_states, cac.num_states + 7, -1, -5):
+            wrong = states.copy()
+            wrong[n // 2] = bad
+            wst = torch.from_numpy(wrong).to(dev)
+            before = sc.LAUNCHES["ac_scan"]
+            for label, call in (
+                ("ac_scan", lambda: sc.ac_scan(cac, p, ln, wst)),
+                ("ac_scan_tiles", lambda: sc.ac_scan_tiles(cac, [(p, ln)], states=[wst])),
+                ("count_matches_ac", lambda: sc.count_matches_ac(cac, p, ln, initial_states=wst)),
+            ):
+                try:
+                    call()
+                except ValueError:
+                    pass
+                else:
+                    check(False, f"{name}: {label} took start state {bad}")
+            check(sc.LAUNCHES["ac_scan"] == before, f"{name}: a refused state launched")
         dfas, accept = stack_kmp_dfas(pats)
         kmp = sc.CompiledKMP.from_numpy(dfas, accept, dev)
-        for per_packet in (False, True):
-            compare("kmp_scan", sc.kmp_scan(kmp, p, ln, per_packet=per_packet),
-                    sc.kmp_scan_plain(kmp, p, ln, per_packet=per_packet),
-                    f"{name} per_packet={per_packet}")
+        want_rows = sc.kmp_scan_plain(kmp, p, ln, per_packet=True)
+        want_tiles = torch.cat([sc.kmp_scan_plain(kmp, tp, tl, per_packet=True)
+                                for tp, tl in tiles])
+        saved = sc.KMP_FILL_LANES
+        try:
+            for fill in (1, 10**9):  # the fewest groups; one pattern a group
+                sc.KMP_FILL_LANES = fill
+                for per_packet in (False, True):
+                    want = want_rows if per_packet else want_rows.sum(0, dtype=torch.int32)
+                    compare("kmp_scan", sc.kmp_scan(kmp, p, ln, per_packet=per_packet), want,
+                            f"{name} per_packet={per_packet} fill={fill}")
+                    want = want_tiles if per_packet else want_tiles.sum(0, dtype=torch.int32)
+                    compare("kmp_scan", sc.kmp_scan_tiles(kmp, tiles, per_packet=per_packet),
+                            want, f"{name} tile list per_packet={per_packet} fill={fill}")
+        finally:
+            sc.KMP_FILL_LANES = saved
         table_bytes = cac.table.numel() * cac.table.element_size()
+        groups = (sc.kmp_groups(kmp.accept_host[kmp.order_host], n)
+                  if kmp.table.dtype == torch.uint8 else "one pattern a block")
         print(f"scan kernel check {name}: {ac.goto.shape[0]} states ({cac.table.dtype}, "
-              f"{table_bytes} B table{', shared memory' if table_bytes <= 227 * 1024 else ''}; "
-              f"built in {built:.3f} s), KMP M={dfas.shape[1]} ({kmp.table.dtype}), n={n} "
-              f"L={payload.shape[1]}, totals {found}: ac_scan and kmp_scan equal")
+              f"{table_bytes} B table{', shared memory' if table_bytes <= 227 * 1024 else ''}, "
+              f"emit bit in the table: {cac.kflag}, depth {cac.depth}, segments "
+              f"{sc.ac_segment_bytes(cac.depth, payload.shape[1])} B and {segs}; built in "
+              f"{built:.3f} s), KMP M={dfas.shape[1]} ({kmp.table.dtype}, groups/slots/smem "
+              f"{groups}), n={n} L={payload.shape[1]}, totals {found}: ac_scan and kmp_scan "
+              f"equal, one tile and a list of 3 in one launch; states outside the table refused")
 
 
 def scan_bound(nbytes: int, row_bytes: int, table_bytes: int, out_ints: int, ops: float) -> dict:
@@ -2050,9 +2150,18 @@ def dfa_phase(dev, card: str, sc, cw, ct, matcher, patterns, pat_file, cap, batc
         wall = time.perf_counter() - t0
         launches[f"{e}_scan"] = only(f"{e}_scan", f"count_pcap engine={e}")
         check(np.array_equal(c, counts), f"engine={e} count_pcap differs from phase 3's counts")
+        check(launches[f"{e}_scan"] == 1, f"count_pcap engine={e} took "
+              f"{launches[f'{e}_scan']} launches, not one over every bucket tile")
+        reset()
+        c = m.count_prepared(prep)
+        n_res = only(f"{e}_scan", f"count_prepared engine={e}")
+        check(np.array_equal(c, counts) and n_res == 1,
+              f"count_prepared engine={e}: {n_res} launches over phase 3's {len(prep.tiles)} "
+              f"resident tiles, counts equal: {np.array_equal(c, counts)}")
         reset()
         r = m.count(head_p, head_l, per_packet=True)
-        only(f"{e}_scan", f"engine={e} per packet")
+        check(only(f"{e}_scan", f"engine={e} per packet") == 1, f"engine={e} per packet: "
+              "not one launch")
         check(np.array_equal(r, per_row), f"engine={e} per-packet rows differ from phase 3's")
         if e == "ac":
             got, _ = sc.ac_scan(cac, hp, hl, hz, per_packet=True)
@@ -2069,9 +2178,10 @@ def dfa_phase(dev, card: str, sc, cw, ct, matcher, patterns, pat_file, cap, batc
             text = head_p[row, : head_l[row]].tobytes()
             check(list(r[row]) == [overlapping(text, q) for q in patterns],
                   f"engine={e} row {row} differs from the pure-Python count")
-        print(f"engine={e}: count_pcap {wall:.3f} s, {launches[f'{e}_scan']} {e}_scan launches = "
-              f"phase 3's counts; per packet on {n_head} rows = phase 3's rows = plain on the "
-              f"card = pure Python (100 rows) [{card}]")
+        print(f"engine={e}: count_pcap {wall:.3f} s, {launches[f'{e}_scan']} {e}_scan launch = "
+              f"phase 3's counts; count_prepared over the {len(prep.tiles)} resident tiles: 1 "
+              f"launch = phase 3's counts; per packet on {n_head} rows (1 launch) = phase 3's "
+              f"rows = plain on the card = pure Python (100 rows) [{card}]")
 
     # -- 2. carried states over phase 3's rows ----------------------------------
     m = eng["ac"]
@@ -2100,6 +2210,11 @@ def dfa_phase(dev, card: str, sc, cw, ct, matcher, patterns, pat_file, cap, batc
     wall = time.perf_counter() - t0
     n_launch = only("ac_scan", "3,072 rules engine=ac")
     check(np.array_equal(c, big_counts), "engine=ac on the 3,072 rules differs from phase 5's")
+    check(n_launch == 1, f"engine=ac on the 3,072 rules took {n_launch} launches, not one")
+    reset()
+    check(np.array_equal(mb.count_prepared(prep2), big_counts)
+          and only("ac_scan", "3,072 rules count_prepared") == 1,
+          "engine=ac count_prepared on phase 5's tiles: not phase 5's counts in one launch")
     head2_p, head2_l = batch2.payloads[:n_head], batch2.lengths[:n_head]
     reset()
     r = mb.count(head2_p, head2_l, per_packet=True)
@@ -2139,6 +2254,7 @@ def dfa_phase(dev, card: str, sc, cw, ct, matcher, patterns, pat_file, cap, batc
             sharded = "--sharded" in flags
             runs = "ac" if sharded else e
             n_launch = only(f"{runs}_scan", f"match --engine {e} {' '.join(flags)}")
+            check(bool(flags) or n_launch == 1, f"match --engine {e} took {n_launch} launches")
             ex = blob["execution"]
             want_keys = jax_keys | {"device"} | ({"shard_axis"} if sharded else set()) | (
                 {"sharded_remap"} if sharded and e == "kmp" else set())
@@ -2235,38 +2351,74 @@ def dfa_phase(dev, card: str, sc, cw, ct, matcher, patterns, pat_file, cap, batc
         zs = [torch.zeros(p.shape[0], dtype=torch.int32, device=dev) for p, _ in tiles]
         return lambda: [fn(p, l, z) for (p, l), z in zip(tiles, zs)]
 
-    ac_pass = pass_fn(lambda p, l, z: sc.ac_scan(cac, p, l, z), prep.tiles)
-    kmp_pass = pass_fn(lambda p, l, z: sc.kmp_scan(kmp, p, l), prep.tiles)
+    # A pass as count_prepared runs it (one launch over the tile list) and,
+    # beside it, one launch a tile.
+    passes = {
+        "ac": lambda: sc.ac_scan_tiles(cac, prep.tiles),
+        "kmp": lambda: sc.kmp_scan_tiles(kmp, prep.tiles),
+        # check=False: the zero states need no check, which would wait for
+        # the card once a tile.
+        "ac per tile": pass_fn(lambda p, l, z: sc.ac_scan(cac, p, l, z, check=False),
+                               prep.tiles),
+        "kmp per tile": pass_fn(lambda p, l, z: sc.kmp_scan(kmp, p, l), prep.tiles),
+    }
     std_filter = ct.CudaTableMatcher(matcher.window, dev, filtered=True)
     nbytes = prep.total_payload_bytes
-    t = {"ac": cuda_ms(ac_pass, SCAN_RUNS)}
-    _, once = timed_once(kmp_pass)
-    kmp_runs = SCAN_RUNS if once < 200 else PLAIN_RUNS
-    t["kmp"] = cuda_ms(kmp_pass, kmp_runs)
+    rows = sum(int(p.shape[0]) for p, _ in prep.tiles)
+    t, dev_ms = {}, {}
+    for name, fn in passes.items():
+        _, once = timed_once(fn)
+        runs = SCAN_RUNS if once < 200 else PLAIN_RUNS
+        t[name] = cuda_ms(fn, runs)
+        dev_ms[name] = device_ms(fn)
+        print(f"stand-in set over phase 3's {len(prep.tiles)} tiles, {name}: {t[name]:.4f} ms "
+              f"(median of {runs}) = {nbytes / t[name] * 1e3:.6e} payload B/s; device time "
+              f"queued alone {fmt_ms(dev_ms[name])} [{card}]")
+    check(np.array_equal(passes["ac"]()[torch.from_numpy(eng["ac"].ac.dup_map).to(dev).long()].cpu()
+                         .numpy(), counts)
+          and np.array_equal(passes["kmp"]().cpu().numpy(), counts),
+          "the timed tile-list passes differ from phase 3's counts")
+    ac_rows_dev = device_ms(lambda: sc.ac_scan_tiles(cac, prep.tiles, per_packet=True))
+    print(f"ac_scan per packet over phase 3's {len(prep.tiles)} tiles, one launch: device time "
+          f"queued alone {fmt_ms(ac_rows_dev)} [{card}]")
+    # kmp_scan's groups against the lanes a launch should fill
+    # (ops/scan.KMP_FILL_LANES): rows x groups.
+    saved = sc.KMP_FILL_LANES
+    try:
+        for fill in (16384, 65536, 262144, 1 << 20):
+            sc.KMP_FILL_LANES = fill
+            g_all = sc.kmp_groups(kmp.accept_host[kmp.order_host], rows)
+            g_one = sc.kmp_groups(kmp.accept_host[kmp.order_host], int(prep.tiles[0][0].shape[0]))
+            print(f"kmp_scan groups at {fill} fill lanes: one launch {g_all[:2]} "
+                  f"{fmt_ms(device_ms(passes['kmp']))} device, one a tile {g_one[:2]} (first "
+                  f"tile) {fmt_ms(device_ms(passes['kmp per tile']))} device [{card}]")
+    finally:
+        sc.KMP_FILL_LANES = saved
     t["window"] = cuda_ms(lambda: matcher.kernels.count_tiles(prep.tiles), SCAN_RUNS)
     t["filter"] = cuda_ms(lambda: std_filter.count_tiles(prep.tiles), SCAN_RUNS)
-    dev_ms = {"ac": device_ms(ac_pass), "kmp": device_ms(kmp_pass)}
-    rows_ms = {"ac": cuda_ms(lambda: sc.ac_scan(cac, hp, hl, hz, per_packet=True), SCAN_RUNS),
+    for e in ("window", "filter"):
+        print(f"stand-in set over phase 3's {len(prep.tiles)} tiles, {e} kernel: {t[e]:.4f} ms = "
+              f"{nbytes / t[e] * 1e3:.6e} payload B/s (median of {SCAN_RUNS}) [{card}]")
+    rows_ms = {"ac": cuda_ms(lambda: sc.ac_scan(cac, hp, hl, hz, per_packet=True, check=False),
+                             SCAN_RUNS),
                "kmp": cuda_ms(lambda: sc.kmp_scan(kmp, hp, hl, per_packet=True), SCAN_RUNS)}
     hbytes = int(np.clip(head_l, 0, None).sum())
-    for e, runs in (("ac", SCAN_RUNS), ("kmp", kmp_runs), ("window", SCAN_RUNS),
-                    ("filter", SCAN_RUNS)):
-        print(f"stand-in set over phase 3's {len(prep.tiles)} tiles, {e} kernel: {t[e]:.4f} ms = "
-              f"{nbytes / t[e] * 1e3:.6e} payload B/s (median of {runs}) [{card}]")
     for e in ("ac", "kmp"):
-        print(f"{e}_scan: device time of the pass queued alone {fmt_ms(dev_ms[e])}; first "
-              f"{n_head} rows ({hbytes} B), per packet: kernel {rows_ms[e]:.4f} ms, plain "
-              f"{plain_ms[e]:.4f} ms (1 run) [{card}]")
-    ac2_pass = pass_fn(lambda p, l, z: sc.ac_scan(bcac, p, l, z), prep2.tiles)
-    t2 = {"ac": cuda_ms(ac2_pass, SCAN_RUNS),
-          "filter": cuda_ms(lambda: big.kernels.count_tiles(prep2.tiles), SCAN_RUNS),
-          "window": cuda_ms(lambda: cw.CudaWindowMatcher(big.window, dev).count_tiles(prep2.tiles),
-                            SCAN_RUNS)}
-    ac2_dev = device_ms(ac2_pass)
+        print(f"{e}_scan: first {n_head} rows ({hbytes} B), per packet: kernel "
+              f"{rows_ms[e]:.4f} ms, plain {plain_ms[e]:.4f} ms (1 run) [{card}]")
+    big_passes = {"ac": lambda: sc.ac_scan_tiles(bcac, prep2.tiles),
+                  "ac per tile": pass_fn(lambda p, l, z: sc.ac_scan(bcac, p, l, z, check=False),
+                                         prep2.tiles)}
+    t2 = {k: cuda_ms(fn, SCAN_RUNS) for k, fn in big_passes.items()}
+    ac2_dev = {k: device_ms(fn) for k, fn in big_passes.items()}
+    t2["filter"] = cuda_ms(lambda: big.kernels.count_tiles(prep2.tiles), SCAN_RUNS)
+    t2["window"] = cuda_ms(lambda: cw.CudaWindowMatcher(big.window, dev).count_tiles(prep2.tiles),
+                           SCAN_RUNS)
     for e, ms in t2.items():
-        print(f"3,072 rules over phase 5's {len(prep2.tiles)} tiles, {e} kernel: {ms:.4f} ms = "
+        print(f"3,072 rules over phase 5's {len(prep2.tiles)} tiles, {e}: {ms:.4f} ms = "
               f"{prep2.total_payload_bytes / ms * 1e3:.6e} payload B/s (median of {SCAN_RUNS})"
-              f"{'; device time queued alone ' + fmt_ms(ac2_dev) if e == 'ac' else ''} [{card}]")
+              f"{'; device time queued alone ' + fmt_ms(ac2_dev[e]) if e in ac2_dev else ''} "
+              f"[{card}]")
 
     # The commands' walls, in turns.
     walls = {}
@@ -2284,19 +2436,38 @@ def dfa_phase(dev, card: str, sc, cw, ct, matcher, patterns, pat_file, cap, batc
     U = cac.num_unique
     P = len(patterns)
     recs = []
-    rows = sum(int(p.shape[0]) for p, _ in prep.tiles)
+    rules_bound = scan_bound(prep2.total_payload_bytes,
+                             4 * sum(int(p.shape[0]) for p, _ in prep2.tiles),
+                             bcac.ktable.numel() * bcac.ktable.element_size(), bcac.num_unique,
+                             AC_OPS_PER_BYTE * prep2.total_payload_bytes)
     for e, line, ops, out_ints, table, row_bytes in (
-        ("ac", 71, AC_OPS_PER_BYTE * nbytes, U, cac.table, 12 * rows),
+        ("ac", 71, AC_OPS_PER_BYTE * nbytes, U, cac.ktable, 4 * rows),
         ("kmp", 174, KMP_OPS_PER_BYTE * P * nbytes, P, kmp.table, 4 * rows),
     ):
         b = scan_bound(nbytes, row_bytes, table.numel() * table.element_size(), out_ints, ops)
-        print(f"{e}_scan bound: {b['bound_ms']:.4f} ms ({b['bound_by']}) / {t[e]:.4f} ms = "
-              f"{b['bound_ms'] / t[e]:.4f} of its bound [{card}]")
-        recs.append({"name": f"{e}_scan", "route": "cuda", "source": SCAN_SRC,
-                     "replaces": f"{SCAN_REF}:{line}", "launches": launches[f"{e}_scan"],
-                     "max_abs_err": max_err[f"{e}_scan"], "ms": t[e], "device_ms": dev_ms[e],
-                     "plain_ms": plain_ms[e], "plain_rows": n_head, "rows_ms": rows_ms[e],
-                     "library_ms": None, **b, "bound_share": b["bound_ms"] / t[e]})
+        tile_ms = t[f"{e} per tile"]
+        print(f"{e}_scan bound: {b['bound_ms']:.4f} ms ({b['bound_by']}); one launch over the "
+              f"tiles {t[e]:.4f} ms = {b['bound_ms'] / t[e]:.4f} of its bound (device "
+              f"{fmt_ms(dev_ms[e])}), one launch a tile {tile_ms:.4f} ms = "
+              f"{b['bound_ms'] / tile_ms:.4f} (device {fmt_ms(dev_ms[e + ' per tile'])}) [{card}]")
+        rec = {"name": f"{e}_scan", "route": "cuda", "source": SCAN_SRC,
+               "replaces": f"{SCAN_REF}:{line}", "launches": launches[f"{e}_scan"],
+               "max_abs_err": max_err[f"{e}_scan"], "ms": t[e], "device_ms": dev_ms[e],
+               "ms_one_launch_a_tile": tile_ms,
+               "device_ms_one_launch_a_tile": dev_ms[f"{e} per tile"],
+               "plain_ms": plain_ms[e], "plain_rows": n_head, "rows_ms": rows_ms[e],
+               "library_ms": None, **b, "bound_share": b["bound_ms"] / t[e]}
+        if e == "ac":
+            rec.update({"rules_ms": t2["ac"], "rules_device_ms": ac2_dev["ac"],
+                        "rules_ms_one_launch_a_tile": t2["ac per tile"],
+                        "rules_device_ms_one_launch_a_tile": ac2_dev["ac per tile"],
+                        "rules_bound_ms": rules_bound["bound_ms"],
+                        "rules_bound_share": rules_bound["bound_ms"] / t2["ac"]})
+            print(f"ac_scan at 3,072 rules: bound {rules_bound['bound_ms']:.4f} ms "
+                  f"({rules_bound['bound_by']}), {rules_bound['bound_ms'] / t2['ac']:.4f} of it "
+                  f"in one launch, {rules_bound['bound_ms'] / t2['ac per tile']:.4f} in one a "
+                  f"tile [{card}]")
+        recs.append(rec)
     print(f"phase 11: {time.perf_counter() - t_phase:.3f} s")
     return recs
 

@@ -30,10 +30,10 @@ from multithreading_string_matching_tpu_torch.io.decode import PayloadBatch, ext
 from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
 from multithreading_string_matching_tpu_torch.ops.bucketing import (
     bucket_plan,
+    bucket_tiles,
     pack_plan,
     pack_rows,
     quantize_rows,
-    run_bucketed,
 )
 from multithreading_string_matching_tpu_torch.ops.cuda_table import CudaTableMatcher
 from multithreading_string_matching_tpu_torch.models.aho_corasick import AhoCorasick
@@ -42,8 +42,10 @@ from multithreading_string_matching_tpu_torch.ops.cuda_window import CudaWindowM
 from multithreading_string_matching_tpu_torch.ops.scan import (
     CompiledAC,
     CompiledKMP,
+    ac_scan_tiles,
     count_matches_ac,
     count_matches_kmp,
+    kmp_scan_tiles,
 )
 from multithreading_string_matching_tpu_torch.ops.window import (
     WindowProgram,
@@ -199,6 +201,12 @@ class Matcher:
         return self._kernels
 
     @property
+    def pallas(self) -> Union[CudaWindowMatcher, CudaTableMatcher]:
+        """:attr:`kernels` under the JAX package's name (``Matcher.pallas``
+        there), for its callers; read-only."""
+        return self.kernels
+
+    @property
     def halo_kernels(self) -> CudaWindowMatcher:
         """The window kernels that count flow-stream rounds
         (``count_tile_halo``) and find matches (``find_tile``): this
@@ -290,6 +298,30 @@ class Matcher:
             return lambda p, l, per_packet: count_matches_ac(
                 self.cac, p, l, per_packet=per_packet, dup_map=self.ac.dup_map)
         raise ValueError(f"no DFA engine {engine!r}")
+
+    def _scan_tiles(self, engine: str, tiles, per_packet: bool) -> torch.Tensor:
+        """The ``ac`` or ``kmp`` engine over a list of tiles in one launch
+        (ops/scan.py ``ac_scan_tiles`` / ``kmp_scan_tiles``): int32[P] over
+        the original pattern list, or int32[rows, P] in tile order, on this
+        matcher's device."""
+        if engine == "kmp":
+            return kmp_scan_tiles(self.kmp, tiles, per_packet=per_packet)
+        if engine != "ac":
+            raise ValueError(f"no DFA engine {engine!r}")
+        out = ac_scan_tiles(self.cac, tiles, per_packet=per_packet)
+        return out[..., torch.as_tensor(self.ac.dup_map, dtype=torch.long, device=out.device)]
+
+    def _count_dfa_bucketed(self, engine: str, payloads: np.ndarray, lengths, *, n_tile: int,
+                            l_quant: int, per_packet: bool) -> np.ndarray:
+        """The JAX package's DFA route (its ``run_bucketed``): the bucket
+        tiles of ``ops/bucketing.bucket_tiles``, staged and counted as a
+        prepared batch (one launch over every tile)."""
+        lengths = np.asarray(lengths)
+        cut = bucket_tiles(payloads, lengths, n_tile=n_tile, l_quant=l_quant)
+        prep = PreparedBatch(tiles=[self._stage(tp, tl) for _, tp, tl in cut],
+                             row_indices=[idx for idx, _, _ in cut], num_rows=len(lengths),
+                             total_payload_bytes=int(lengths.sum()))
+        return self.count_prepared(prep, engine=engine, per_packet=per_packet)
 
     def explain(self) -> dict:
         """How this matcher will execute (for logs, not for program logic)."""
@@ -383,10 +415,10 @@ class Matcher:
             # payloads as they are (a length past the buffer scans to its
             # end), no packing.
             payloads = self._maybe_fold(np.asarray(payloads, dtype=np.uint8))
-            fn = self._engine_fn(engine)
             if bucketed if bucketed is not None else self.bucketed:
-                return run_bucketed(fn, payloads, lengths, n_tile=n_tile, l_quant=l_quant,
-                                    per_packet=per_packet)
+                return self._count_dfa_bucketed(engine, payloads, lengths, n_tile=n_tile,
+                                                l_quant=l_quant, per_packet=per_packet)
+            fn = self._engine_fn(engine)
             return fn(payloads, lengths, per_packet=per_packet).cpu().numpy()
         if per_packet or engine == "window":
             packed = False
@@ -529,8 +561,9 @@ class Matcher:
             elif engine == "window":
                 outs = count_matches_window_tiles(self.window, prep.tiles, per_packet=True)
             else:
-                fn = self._engine_fn(engine)
-                outs = [fn(p, l, per_packet=True) for p, l in prep.tiles]
+                # One launch over every tile; rows in tile order.
+                rows = self._scan_tiles(engine, prep.tiles, True).cpu()
+                outs = rows.split([int(p.shape[0]) for p, _ in prep.tiles])
             merged = np.zeros((prep.num_rows, len(self.patterns)), dtype=np.int32)
             for idx, o in zip(prep.row_indices, outs):
                 merged[idx] = o[: len(idx)].cpu().numpy()
@@ -540,11 +573,7 @@ class Matcher:
         elif engine == "window":
             out = count_matches_window_tiles(self.window, prep.tiles)
         else:
-            fn = self._engine_fn(engine)
-            out = None
-            for p, l in prep.tiles:
-                o = fn(p, l, per_packet=False)
-                out = o if out is None else out + o
+            out = self._scan_tiles(engine, prep.tiles, False)
         return out.cpu().numpy() if block else out
 
     def count_batch(self, batch: PayloadBatch, **kw) -> np.ndarray:

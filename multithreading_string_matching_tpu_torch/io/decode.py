@@ -49,8 +49,15 @@ class PayloadBatch:
     num_packets: int          # packets inspected (valid + invalid)
 
     @property
+    def num_payloads(self) -> int:
+        return int(self.payloads.shape[0])
+
+    @property
     def total_payload_bytes(self) -> int:
         return int(self.lengths.sum())
+
+    def payload(self, i: int) -> bytes:
+        return self.payloads[i, : int(self.lengths[i])].tobytes()
 
 
 def _safe_byte(buf: np.ndarray, idx: np.ndarray, ok: np.ndarray) -> np.ndarray:

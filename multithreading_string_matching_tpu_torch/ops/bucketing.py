@@ -5,12 +5,12 @@ Payload lengths are heavy-tailed, so rows are sorted by length into one
 tile per quantized width class (padded bytes tight against real bytes), or
 sequence-packed into fixed-width rows with a single 0x00 separator.  Both
 are pure host arithmetic; the outputs equal the JAX package's exactly.
-:func:`run_bucketed` runs a tile count over the bucket plan.
+:func:`bucket_tiles` cuts the bucket tiles of the DFA engines' route.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -141,31 +141,22 @@ def pack_plan(
     return rows, fills
 
 
-def run_bucketed(
-    count_fn: Callable,
+def bucket_tiles(
     payloads: np.ndarray,
     lengths: np.ndarray,
     *,
     n_tile: int = 2048,
     l_quant: int = 128,
-    per_packet: bool = False,
-) -> np.ndarray:
-    """``count_fn(payloads_tile, lengths_tile, per_packet=...)`` per bucket,
-    merged: totals summed across tiles (as tensors, fetched once), per-packet
-    rows scattered back to input order.  Tiles are the payloads' own bytes
-    cut to each bucket's width (no zero columns added), as in the JAX
-    package."""
+) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """``(row indices, uint8 tile, int32 lengths)`` per bucket of the plan,
+    as the JAX package's ``run_bucketed`` cuts them for the DFA engines:
+    the payloads' own bytes cut to each bucket's width (no zero columns
+    added: a length past the buffer scans to its end), rows padded to
+    :func:`quantize_rows` with length 0."""
     payloads = np.asarray(payloads)
     lengths = np.asarray(lengths)
-    plan = bucket_plan(lengths, n_tile=n_tile, l_quant=l_quant)
-    if not plan:
-        # Zero-row batch: one dummy tile gives the correctly shaped zeros.
-        out = count_fn(np.zeros((8, 8), np.uint8), np.zeros(8, np.int32),
-                       per_packet=per_packet).cpu().numpy()
-        return out[:0] if per_packet else out
-    total = None
-    merged = None
-    for idx, lt in plan:
+    out = []
+    for idx, lt in bucket_plan(lengths, n_tile=n_tile, l_quant=l_quant):
         tile_p = payloads[idx, :lt]
         tile_l = lengths[idx]
         target = quantize_rows(tile_p.shape[0])  # padding rows have length 0
@@ -173,12 +164,5 @@ def run_bucketed(
             pad = target - tile_p.shape[0]
             tile_p = np.pad(tile_p, ((0, pad), (0, 0)))
             tile_l = np.pad(tile_l, (0, pad))
-        out = count_fn(tile_p, tile_l, per_packet=per_packet)
-        if per_packet:
-            rows = out.cpu().numpy()
-            if merged is None:
-                merged = np.zeros((len(lengths), rows.shape[1]), dtype=rows.dtype)
-            merged[idx] = rows[: len(idx)]
-        else:
-            total = out if total is None else total + out
-    return merged if per_packet else total.cpu().numpy()
+        out.append((idx, tile_p, tile_l))
+    return out

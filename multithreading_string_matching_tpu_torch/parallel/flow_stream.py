@@ -62,7 +62,7 @@ from multithreading_string_matching_tpu_torch.io.flows import (
     tcp_flags,
     tcp_seqs,
 )
-from multithreading_string_matching_tpu_torch.ops.scan import count_matches_ac
+from multithreading_string_matching_tpu_torch.ops.scan import check_states, count_matches_ac
 from multithreading_string_matching_tpu_torch.ops.window import StreamHalo, window_stream_chunk
 
 
@@ -457,8 +457,11 @@ class FlowStreamMatcher:
         states = np.zeros(F, np.int32)
         for i, k in enumerate(flows):
             states[i] = self._states.get(k, 0)
-        states_v = torch.from_numpy(states).to(self.matcher.device)
         cac, dup = self.matcher.cac, self.matcher.ac.dup_map
+        # Checked once here, on the host: from here on the states are the
+        # kernel's own, and a check a chunk would wait for the card.
+        check_states(states, cac.dead)
+        states_v = torch.from_numpy(states).to(self.matcher.device)
         fold = self.matcher._maybe_fold
 
         def step(tile, c):
@@ -470,11 +473,11 @@ class FlowStreamMatcher:
                 )
 
                 counts, states_v = count_chunk_sharded(cac, fold(tile), rel, states_v,
-                                                       self.mesh, dup_map=dup)
+                                                       self.mesh, dup_map=dup, check=False)
             else:
                 counts, states_v = count_matches_ac(cac, fold(tile), rel,
                                                     initial_states=states_v, dup_map=dup,
-                                                    return_states=True)
+                                                    return_states=True, check=False)
             return counts
 
         self._chunk_loop(flows, F, longest, long_q, step)

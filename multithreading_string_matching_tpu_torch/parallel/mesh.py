@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from multithreading_string_matching_tpu_torch.ops.cuda_window import canonical_device
-from multithreading_string_matching_tpu_torch.ops.scan import CompiledAC, ac_scan
+from multithreading_string_matching_tpu_torch.ops.scan import CompiledAC, ac_scan, check_states
 from multithreading_string_matching_tpu_torch.ops.window import window_count, window_count_halo_plain
 
 PACKET_AXIS = "packets"
@@ -142,29 +142,34 @@ def _staged_window(matcher, device):
 
 def _ac_shard(cac: CompiledAC, dev, p, l, states=None):
     """``(unique counts, new states)`` of one shard's rows on ``dev`` (the
-    automaton's tables copied there when they live elsewhere)."""
+    automaton's tables copied there when they live elsewhere), from the
+    root or from ``states`` that the caller has checked."""
     same = canonical_device(dev) == canonical_device(cac.device)
     c = cac if same else cac.to(dev)
     if states is None:
         states = torch.zeros(p.shape[0], dtype=torch.int32, device=dev)
-    return ac_scan(c, p, l, states)
+    return ac_scan(c, p, l, states, check=False)
 
 
 def count_chunk_sharded(cac: CompiledAC, payloads, lengths, states, mesh: Mesh, *,
-                        dup_map: Optional[np.ndarray] = None
+                        dup_map: Optional[np.ndarray] = None, check: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Carried-state AC chunk scan with the flow lanes sharded over the
     mesh: ``(counts, new_states)``, counts over unique patterns (or
     dup-expanded with ``dup_map``) summed on the first shard's device, and
     the int32[F] states after the chunk there too.  Each shard scans its
     own lanes from their own states; the lane count must divide over the
-    mesh (the flow monitor's lane quantization guarantees it)."""
+    mesh (the flow monitor's lane quantization guarantees it).  States
+    outside ``[0, dead]`` are refused with ``ValueError``; ``check=False``
+    skips that check, for states only the kernel wrote."""
     devs = list(mesh.devices.flat)
     F = int(np.shape(payloads)[0])
     if F % len(devs):
         raise ValueError(f"{F} flow lanes do not divide over {len(devs)} shards")
     rows = F // len(devs)
     states = torch.as_tensor(states, dtype=torch.int32)
+    if check:
+        check_states(states, cac.dead)
     parts, outs = [], []
     for d, (dev, p, l) in enumerate(_row_shards(np.asarray(payloads), np.asarray(lengths), mesh)):
         st = states[d * rows:(d + 1) * rows].to(dev).contiguous()

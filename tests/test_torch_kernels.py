@@ -839,40 +839,97 @@ def _scan_case(case, dev):
 @pytest.mark.parametrize("case", sorted(SCAN_CASES))
 def test_ac_scan_equals_plain(cuda_device, case):
     """Totals, rows and final states, from the root and from carried
-    states (some outside the table), over lengths <= 0 and past the width."""
+    in-table states (the dead state among them), over lengths <= 0 and past
+    the width, at the default segment size and at 16- and 23-byte segments
+    (warm-ups across every boundary, patterns longer than a segment); states
+    outside the table are refused."""
     pats, p, l = _scan_case(case, cuda_device)
     ac = AhoCorasick.build(pats)
     c_gpu = sc.CompiledAC.from_automaton(ac, cuda_device)
     c_cpu = sc.CompiledAC.from_automaton(ac, "cpu")
     assert c_gpu.table.dtype == (torch.int16 if ac.goto.shape[0] <= 65536 else torch.int32)
     rng = np.random.default_rng(1)
-    init = rng.integers(-2, ac.goto.shape[0] + 3, size=p.shape[0]).astype(np.int32)
+    init = rng.integers(0, ac.goto.shape[0], size=p.shape[0]).astype(np.int32)
+    init[::7] = c_gpu.dead
     for states in (np.zeros(p.shape[0], np.int32), init):
         for per_packet in (False, True):
-            before = sc.LAUNCHES["ac_scan"]
-            got, got_st = sc.ac_scan(c_gpu, p, l, torch.from_numpy(states).to(cuda_device),
-                                     per_packet=per_packet)
-            torch.cuda.synchronize()
-            assert sc.LAUNCHES["ac_scan"] == before + 1
-            want, want_st = sc.ac_scan(c_cpu, p.cpu(), l.cpu(), torch.from_numpy(states),
-                                       per_packet=per_packet)
-            assert torch.equal(got.cpu(), want) and torch.equal(got_st.cpu(), want_st)
+            for seg in (None, 16, 23):
+                before = sc.LAUNCHES["ac_scan"]
+                got, got_st = sc.ac_scan(c_gpu, p, l, torch.from_numpy(states).to(cuda_device),
+                                         per_packet=per_packet, seg_bytes=seg)
+                torch.cuda.synchronize()
+                assert sc.LAUNCHES["ac_scan"] == before + 1
+                want, want_st = sc.ac_scan(c_cpu, p.cpu(), l.cpu(), torch.from_numpy(states),
+                                           per_packet=per_packet)
+                assert torch.equal(got.cpu(), want) and torch.equal(got_st.cpu(), want_st)
+    assert want.sum() > 0
+    for bad in (c_gpu.dead + 1, c_gpu.dead + 8, -1, -5):
+        states = init.copy()
+        states[1] = bad
+        before = sc.LAUNCHES["ac_scan"]
+        with pytest.raises(ValueError):
+            sc.ac_scan(c_gpu, p, l, torch.from_numpy(states).to(cuda_device))
+        with pytest.raises(ValueError):
+            sc.ac_scan_tiles(c_gpu, [(p, l)], states=[torch.from_numpy(states).to(cuda_device)])
+        assert sc.LAUNCHES["ac_scan"] == before
+
+
+@pytest.mark.parametrize("case", ["dups", "standin", "long-99", "int32-table"])
+def test_ac_scan_tiles_equals_plain(cuda_device, case):
+    """One launch over a list of tiles of several widths: totals and rows
+    equal the plain version tile by tile, with and without carried
+    states."""
+    pats, p, l = _scan_case(case, cuda_device)
+    ac = AhoCorasick.build(pats)
+    c_gpu = sc.CompiledAC.from_automaton(ac, cuda_device)
+    c_cpu = sc.CompiledAC.from_automaton(ac, "cpu")
+    n = p.shape[0]
+    cuts = [0, n // 3, n // 2, n]
+    tiles = [(p[a:b, : max(1, p.shape[1] - 7 * k)].contiguous(), l[a:b].contiguous())
+             for k, (a, b) in enumerate(zip(cuts[:-1], cuts[1:]))]
+    rng = np.random.default_rng(2)
+    states = [torch.from_numpy(rng.integers(0, c_gpu.dead + 1, t[0].shape[0]).astype(np.int32))
+              for t in tiles]
+    for per_packet in (False, True):
+        before = sc.LAUNCHES["ac_scan"]
+        got = sc.ac_scan_tiles(c_gpu, tiles, per_packet=per_packet)
+        got_c, got_st = sc.ac_scan_tiles(c_gpu, tiles, per_packet=per_packet,
+                                         states=[s.to(cuda_device) for s in states])
+        torch.cuda.synchronize()
+        assert sc.LAUNCHES["ac_scan"] == before + 2
+        want = sc.ac_scan_tiles(c_cpu, [(a.cpu(), b.cpu()) for a, b in tiles],
+                                per_packet=per_packet)
+        want_c, want_st = sc.ac_scan_tiles(c_cpu, [(a.cpu(), b.cpu()) for a, b in tiles],
+                                           per_packet=per_packet, states=states)
+        assert torch.equal(got.cpu(), want) and torch.equal(got_c.cpu(), want_c)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got_st, want_st))
     assert want.sum() > 0
 
 
 @pytest.mark.parametrize("case", ["dups", "nul", "standin", "long-99", "unaligned-width"])
-def test_kmp_scan_equals_plain(cuda_device, case):
+@pytest.mark.parametrize("fill", [1, 10**6])
+def test_kmp_scan_equals_plain(cuda_device, case, fill, monkeypatch):
+    """The grouped kernel at as few groups as shared memory allows (fill 1)
+    and at one pattern a group (fill 10^6), one tile and a tile list."""
+    monkeypatch.setattr(sc, "KMP_FILL_LANES", fill)
     pats, p, l = _scan_case(case, cuda_device)
     dfas, accept = stack_kmp_dfas(pats)
     k_gpu = sc.CompiledKMP.from_numpy(dfas, accept, cuda_device)
     k_cpu = sc.CompiledKMP.from_numpy(dfas, accept)
+    n = p.shape[0]
+    tiles = [(p[: n // 2], l[: n // 2]), (p[n // 2:, : max(1, p.shape[1] - 5)].contiguous(),
+                                          l[n // 2:])]
     for per_packet in (False, True):
         before = sc.LAUNCHES["kmp_scan"]
         got = sc.kmp_scan(k_gpu, p, l, per_packet=per_packet)
+        got_t = sc.kmp_scan_tiles(k_gpu, tiles, per_packet=per_packet)
         torch.cuda.synchronize()
-        assert sc.LAUNCHES["kmp_scan"] == before + 1
+        assert sc.LAUNCHES["kmp_scan"] == before + 2
         want = sc.kmp_scan(k_cpu, p.cpu(), l.cpu(), per_packet=per_packet)
+        want_t = sc.kmp_scan_tiles(k_cpu, [(a.cpu(), b.cpu()) for a, b in tiles],
+                                   per_packet=per_packet)
         assert torch.equal(got.cpu(), want) and want.sum() > 0
+        assert torch.equal(got_t.cpu(), want_t)
 
 
 def test_scan_wrappers_refuse_bad_inputs(cuda_device):
@@ -911,7 +968,7 @@ def test_matcher_dfa_engines_on_card_equal_cpu(cuda_device, tmp_path, engine):
     cpu = Matcher(pats, engine=engine, device="cpu")
     before = sc.LAUNCHES[f"{engine}_scan"]
     got = gpu.count_pcap(path)
-    assert sc.LAUNCHES[f"{engine}_scan"] > before
+    assert sc.LAUNCHES[f"{engine}_scan"] == before + 1  # one launch over every bucket tile
     assert np.array_equal(got, cpu.count_pcap(path)) and got.sum() > 100
     p, l = _tile(4, 200, 300, b"LinuxHTP ", "cpu", plant=pats)
     p, l = p.numpy(), l.numpy()
