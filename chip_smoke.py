@@ -7,7 +7,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Print the card's name and power limit, build the CUDA kernels from
    ``multithreading_string_matching_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together) and print the build times.
+   source, started together) and print the build times; rows 1 and 4's
+   device times are printed at the end beside PERF.md's earlier ones (they
+   share the probe table build with ``window_find``).
 2. Hold each kernel equal to its plain PyTorch version on the same CUDA
    tensors: the window kernels (``window_count_totals``, also with
    ``reps=3``, and ``window_count_rows``) and the table and filter kernels
@@ -31,7 +33,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and at one pattern a group, one tile and a list of three tiles in one
    launch; start states outside the table (S, S + 7, -1, -5) are refused
    by ``ac_scan``, ``ac_scan_tiles`` and ``count_matches_ac`` with nothing
-   launched.
+   launched.  ``window_find`` (``csrc/window_find.cu``) on its traps, each
+   over many 16,384-position tiles: every position dense with matches (1-,
+   2-, 3-byte and NUL-tailed patterns), heads and tails of a pattern on two
+   sides of every row boundary, lengths past the width under NUL-tailed
+   patterns, rows of length 0 and below, rows of 5 bytes (every position
+   takes the full probe), and 9,004 patterns whose hits at
+   one start fall in three hash chunks; each also with a first capacity of
+   1 row (one rerun) and in row slices at unaligned addresses.
 3. The main path at a real size: a seeded 100,000-packet capture of
    ~1 KB payloads (~100 MB) with the 97-token stand-in pattern set, counted
    by ``Matcher(device="cuda").count_pcap``, per packet on its first 8,192
@@ -128,11 +137,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    pack, stager wait, copy and launch enqueue) and the device time of its
    copies and kernels (CUDA events on the copy and compute streams).  The
    window, table and filter records gain ``stream_launches``.
-10. Match attribution at full width (``window_find``, the emit mode of
-   ``csrc/window_count.cu``).  ``match --offsets --json`` on phase 3's
+10. Match attribution at full width (``window_find``, one ordered launch
+   of ``csrc/window_find.cu``).  ``match --offsets --json`` on phase 3's
    capture, with the launch counters reset just before, must launch
-   ``window_find`` and its ``window_count_totals`` pass (one each a row
-   slice) and nothing else; its triples must be unique, bincount to phase
+   ``window_find`` once a row slice (plus at most one counted rerun) and
+   nothing else, no ``window_count_totals``; its triples must be unique, bincount to phase
    3's counts, and each read back on the host as its pattern's bytes; on
    the first 8,192 rows they equal the plain version on the card.  The
    same on phase 5's 3,072-rule capture.  ``--dump-matches`` writes the
@@ -140,8 +149,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    --dump-matches`` gives the one-shot triples and dump bytes; ``--flows
    --offsets`` and ``--flows --stream --offsets`` on phase 6's capture give
    the same triples and phase 6's counts.  Times: ``window_find`` over the
-   staged stand-in batch (median of 20) and the device time of its three
-   steps queued alone, the kernel and the plain version on the first 8,192
+   staged stand-in batch (median of 20) and the device time of its one
+   launch queued alone (with and without its flag clear), the kernel and the plain version on the first 8,192
    rows, and the walls of ``match``, ``match --offsets``, ``match
    --dump-matches``, ``match --stream`` and ``match --stream --offsets``
    (median of 3, in turns).
@@ -193,6 +202,7 @@ the host could not stay ahead: the upper bound is printed instead).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import copy
 import functools
 import hashlib
@@ -1682,6 +1692,74 @@ def check_triples(label, rows, wp, counts, payloads, lengths, row_ids) -> None:
           "its pattern (host check)")
 
 
+def find_traps():
+    """(name, patterns, payloads, lengths) of ``window_find``'s traps, each
+    over many of the kernel's 16,384-position tiles (its 3-stage ring turns)."""
+    rng = np.random.default_rng(SEED + 12)
+    nul = [b"\x00", b"A\x00", b"\x00\x00", b"AA\x00\x00", b"A\x00\x00\x00\x00"]
+    dense = np.full((700, 131), ord("A"), np.uint8)
+    dense[::3, 100:] = 0
+    L = 45
+    edge = rng.integers(ord("a"), ord("f"), size=(3000, L)).astype(np.uint8)
+    for r in range(2999):
+        k = 1 + r % 3
+        edge[r, L - k:] = np.frombuffer(b"wxyz"[:k], np.uint8)
+        edge[r + 1, : 4 - k] = np.frombuffer(b"wxyz"[k:], np.uint8)
+    edge[::97, 10:14] = np.frombuffer(b"wxyz", np.uint8)
+    past = rng.choice(np.frombuffer(b"A\x00", np.uint8), size=(4000, 37)).astype(np.uint8)
+    past[:, 0] = ord("A")
+    zero = rng.choice(np.frombuffer(b"ab\x00", np.uint8), size=(2500, 77)).astype(np.uint8)
+    zlens = rng.integers(0, 78, 2500).astype(np.int32)
+    zlens[::2] = 0
+    zlens[1::10] = -5
+    narrow = rng.choice(np.frombuffer(b"ab\x00", np.uint8), size=(20000, 5)).astype(np.uint8)
+    chunked = rng.choice(np.frombuffer(b"c0123456789", np.uint8), size=(300, 300)).astype(np.uint8)
+    for r in range(300):
+        chunked[r, r % 290 : r % 290 + 6] = np.frombuffer(b"c%05d" % (r * 29 % 9000), np.uint8)
+    return [
+        ("dense A, A/AA/AAA + NUL tails", [b"A", b"AA", b"AAA"] + nul, dense,
+         rng.integers(0, 140, 700).astype(np.int32)),
+        ("a pattern across every row boundary", [b"wxyz", b"vwxyz1", b"z1", b"yz"], edge,
+         np.full(3000, L, np.int32)),
+        ("lengths past the width, NUL tails", nul, past,
+         rng.integers(35, 46, 4000).astype(np.int32)),
+        ("rows of length 0 and below", [b"ab", b"\x00", b"b\x00a", b"abab"], zero, zlens),
+        ("rows of 5 bytes", [b"a", b"ab", b"\x00", b"a\x00", b"ba", b"\x00\x00a"], narrow,
+         rng.integers(-1, 9, 20000).astype(np.int32)),
+        ("9,004 patterns, three chunks at one start",
+         [b"c%05d" % i for i in range(9000)] + [b"c", b"c0", b"c00", b"c000"], chunked,
+         rng.integers(0, 301, 300).astype(np.int32)),
+    ]
+
+
+def find_checks(dev, compare, cw) -> None:
+    """Phase 2's ``window_find`` checks: each trap equals the plain version,
+    also with a first capacity of 1 row (one counted rerun) and in row
+    slices whose bases are not 16-byte aligned."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch.ops.window import WindowProgram, window_find_plain
+
+    for name, pats, payloads, lengths in find_traps():
+        words, masks, lens = WindowProgram.build(pats).tables(dev)
+        p, ln = torch.from_numpy(payloads).to(dev), torch.from_numpy(lengths).to(dev)
+        want = window_find_plain(words, masks, lens, p, ln)
+        compare("window_find", cw.window_find(p, ln, words, masks, lens), want, name)
+        reruns = cw.LAUNCHES["window_find_rerun"]
+        compare("window_find", cw.window_find(p, ln, words, masks, lens, cap=1), want,
+                f"{name}, first capacity 1")
+        check(cw.LAUNCHES["window_find_rerun"] == reruns + 1 and len(want) > 1,
+              f"window_find {name}: a capacity of 1 did not rerun once")
+        for s0 in (1, 3, 7):
+            s1 = s0 + payloads.shape[0] // 2
+            compare("window_find", cw.window_find(p[s0:s1], ln[s0:s1], words, masks, lens),
+                    window_find_plain(words, masks, lens, p[s0:s1], ln[s0:s1]),
+                    f"{name}, rows {s0}:{s1} (base {p[s0:s1].data_ptr() % 16} mod 16)")
+        print(f"window_find check {name}: n={payloads.shape[0]} L={payloads.shape[1]} "
+              f"({-(-payloads.size // 16384)} tiles), {len(want)} triples: equal, with a rerun "
+              "from capacity 1 and in unaligned row slices")
+
+
 def attribution_phase(dev, card: str, cw, ct, matcher, pat_file, cap, batch, counts, big,
                       rules_file, cap2, batch2, big_counts, flow_cap, flow_counts) -> dict:
     """Phase 10, match attribution at full width; returns the kernel record
@@ -1730,9 +1808,11 @@ def attribution_phase(dev, card: str, cw, ct, matcher, pat_file, cap, batch, cou
     launches = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
     print(f"match --offsets --json (stand-in): {off_s:.4f} s wall, launches {launches}, "
           f"{len(blob['offsets'])} triples [{card}]")
-    check(set(launches) == {"window_count_totals", "window_find"}
-          and launches["window_find"] == launches["window_count_totals"] >= 1,
-          f"match --offsets launched {launches}")
+    check(set(launches) <= {"window_find", "window_find_rerun"}
+          and launches.get("window_find", 0) >= 1
+          and launches.get("window_find_rerun", 0) <= launches["window_find"],
+          f"match --offsets launched {launches}: one window_find a row slice (and at most "
+          "one rerun each), no window_count_totals")
     check(blob["counts"] == counts.tolist(), "match --offsets counts differ from phase 3's")
     rows = np.asarray(blob["offsets"], np.int64).reshape(-1, 3)
     check(len(rows) > 1000, f"only {len(rows)} triples")
@@ -1752,38 +1832,38 @@ def attribution_phase(dev, card: str, cw, ct, matcher, pat_file, cap, batch, cou
     find_ms = cuda_ms(lambda: cw.window_find(fp, fl, *tabs), SCAN_RUNS)
     head_ms = cuda_ms(lambda: cw.window_find(hp, hl, *tabs), SCAN_RUNS)
     plain_ms = cuda_ms(lambda: window_find_plain(*tabs, hp, hl), PLAIN_RUNS)
-    # Device time: its three device steps (totals launch, emit launch, key
-    # sort), each queued alone: the wrapper itself waits for M and the cursor.
+    # Device time: the one launch through the C entry point (which clears
+    # its flags first) queued alone, and the clear alone; the wrapper itself
+    # waits for M.
     n, L = fp.shape
     U, K = tabs[0].shape
-    out = torch.empty((M, 3), dtype=torch.int32, device=dev)
-    cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+    size = ctypes.c_longlong()
+    cw.FIND_LIBRARY.call("msm_window_find_scratch", n, L, ctypes.byref(size))
+    out = torch.empty((M, 3), dtype=torch.int64, device=dev)
+    scratch = torch.empty(size.value, dtype=torch.int64, device=dev)
 
-    def emit():
-        cursor.zero_()
-        cw.LIBRARY.call("msm_window_find", fp.data_ptr(), fl.data_ptr(), tabs[0].data_ptr(),
-                        tabs[1].data_ptr(), tabs[2].data_ptr(), cursor.data_ptr(), M,
-                        out.data_ptr(), n, L, U, K, dev.index or 0,
-                        torch.cuda.current_stream().cuda_stream)
+    def launch():
+        cw.FIND_LIBRARY.call("msm_window_find", fp.data_ptr(), fl.data_ptr(), tabs[0].data_ptr(),
+                             tabs[1].data_ptr(), tabs[2].data_ptr(), out.data_ptr(), M,
+                             scratch.data_ptr(), n, L, U, K, dev.index or 0,
+                             torch.cuda.current_stream().cuda_stream)
 
-    def sort():
-        t = out.long()
-        return t[torch.argsort((t[:, 0] * L + t[:, 1]) * U + t[:, 2])]
-
-    steps = {"totals": device_ms(lambda: cw.window_count_totals(fp, fl, *tabs)),
-             "emit": device_ms(emit), "sort": device_ms(sort)}
-    check(int(cursor) == M and torch.equal(sort(), full), "the emit launch alone differs")
-    find_dev = None if None in steps.values() else sum(steps.values())
+    steps = {"launch with its flag clear": device_ms(launch),
+             "flag clear alone": device_ms(scratch.zero_)}
+    launch()
+    check(int(scratch[1]) == M and torch.equal(out, full), "the launch alone differs")
+    find_dev = steps["launch with its flag clear"]
     nbytes = batch.total_payload_bytes
-    bnd = window_bound(matcher.window, position_words([(fp, fl)]), nbytes, 3 * M,
+    bnd = window_bound(matcher.window, position_words([(fp, fl)]), nbytes, 6 * M,
                        label="window_find (one pass)")
     print(f"window_find, stand-in batch {tuple(fp.shape)} ({nbytes} payload bytes, {M} "
-          f"triples): {find_ms:.4f} ms (median of {SCAN_RUNS}; two launches, two host syncs, "
-          f"sort) = {nbytes / find_ms * 1e3:.6e} payload B/s; device "
+          f"triples, {size.value - 2} tiles): {find_ms:.4f} ms (median of {SCAN_RUNS}; one "
+          f"launch, one host sync) = {nbytes / find_ms * 1e3:.6e} payload B/s; device "
           + ", ".join(f"{k} {fmt_ms(v)}" for k, v in steps.items())
-          + f" = {fmt_ms(find_dev)}; first {hp.shape[0]} rows: kernel {head_ms:.4f} ms, plain "
+          + f"; first {hp.shape[0]} rows: kernel {head_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms (median of {PLAIN_RUNS}); bound {bnd['bound_ms']:.4f} ms "
-          f"({bnd['bound_by']}), share {bnd['bound_ms'] / find_ms:.4f} [{card}]")
+          f"({bnd['bound_by']}), share of ms {bnd['bound_ms'] / find_ms:.4f}, of device ms "
+          + (f"{bnd['bound_ms'] / find_dev:.4f}" if find_dev else "not measured") + f" [{card}]")
     del fp, fl, full
 
     # -- --dump-matches, --stream, and the walls ----------------------------
@@ -1830,7 +1910,7 @@ def attribution_phase(dev, card: str, cw, ct, matcher, pat_file, cap, batch, cou
     blob2, s = cli_json(cli, ["match", "--pcap", cap2, "--patterns", rules_file, "--json",
                               "--offsets"])
     launches2 = {k: v for k, v in {**cw.LAUNCHES, **ct.LAUNCHES}.items() if v}
-    check(set(launches2) == {"window_count_totals", "window_find"},
+    check(set(launches2) <= {"window_find", "window_find_rerun"} and launches2.get("window_find"),
           f"match --offsets (3,072 rules) launched {launches2}")
     check(blob2["counts"] == big_counts.tolist(), "3,072-rule triples' counts differ from phase 5")
     rows2 = np.asarray(blob2["offsets"], np.int64).reshape(-1, 3)
@@ -1911,14 +1991,16 @@ def attribution_phase(dev, card: str, cw, ct, matcher, pat_file, cap, batch, cou
           + ", ".join(f"{k} {v:.4f} s" for k, v in render_s.items()) + f" [{card}]")
     print(f"phase 10: {time.perf_counter() - t_phase:.3f} s")
     return {"name": "window_find", "route": "cuda",
-            "source": "multithreading_string_matching_tpu_torch/csrc/window_count.cu",
+            "source": "multithreading_string_matching_tpu_torch/csrc/window_find.cu",
             "replaces": "multithreading_string_matching_tpu/ops/window.py:217",
             "replaces_note": "no pl.pallas_call: the XLA bitmap _window_bitmap_group and the "
                              "host np.nonzero of find_matches (:230)",
-            "launches": launches["window_find"], "max_abs_err": max_err, "ms": find_ms,
+            "launches": launches["window_find"],
+            "reruns": launches.get("window_find_rerun", 0), "max_abs_err": max_err, "ms": find_ms,
             "device_ms": find_dev, "device_steps_ms": steps, "plain_ms": plain_ms,
             "plain_covers": f"first {ROWS_PER_PACKET_RUN} rows", "ms_plain_rows": head_ms,
-            "library_ms": None, "matches": M, **bnd, "bound_share": bnd["bound_ms"] / find_ms}
+            "library_ms": None, "matches": M, **bnd, "bound_share": bnd["bound_ms"] / find_ms,
+            "bound_share_device": bnd["bound_ms"] / find_dev if find_dev else None}
 
 # -- the DFA scans (phases 2 and 11) -------------------------------------------
 
@@ -2508,14 +2590,16 @@ def run(dev) -> int:
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as ex:
-        for f in [ex.submit(m.load_library, verbose_ptxas=True) for m in (cw, ct, mx, sc)]:
+    libraries = (cw.LIBRARY, cw.FIND_LIBRARY, ct.LIBRARY, mx.LIBRARY, sc.LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as ex:
+        for f in [ex.submit(lib.load, verbose_ptxas=True) for lib in libraries]:
             f.result()
-    print(f"build: {time.perf_counter() - t0:.3f} s wall for the four libraries")
-    for m in (cw, ct, mx, sc):
-        print(f"build: nvcc {m.BUILD_INFO['seconds']:.3f} s -> {m.BUILD_INFO['path']}")
+    print(f"build: {time.perf_counter() - t0:.3f} s wall for the {len(libraries)} libraries")
+    for lib in libraries:
+        info = lib.build_info
+        print(f"build: nvcc {info['seconds']:.3f} s -> {info['path']}")
         functions, spilling, fn = 0, [], None
-        for line in str(m.BUILD_INFO["log"]).splitlines():
+        for line in str(info["log"]).splitlines():
             if "registers" in line or "Compiling entry" in line or "Performance Loss" in line:
                 print(f"ptxas: {line.strip()}")
             entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2525,7 +2609,7 @@ def run(dev) -> int:
                 functions += 1
                 if int(found[1]) or int(found[2]):
                     spilling.append(f"{fn} ({found[1]} B stored, {found[2]} B loaded)")
-        print(f"ptxas spills, {pathlib.Path(m.BUILD_INFO['path']).name}, {functions} functions: "
+        print(f"ptxas spills, {pathlib.Path(info['path']).name}, {functions} functions: "
               f"{'; '.join(spilling) or 'none'}")
 
     # -- 2. kernels against the plain version -----------------------------
@@ -2598,6 +2682,7 @@ def run(dev) -> int:
     print(f"nine probe masks: refused by the wrappers; the C entry point = plain "
           f"({int(out9.sum())} matches)")
     scan_checks(dev, compare, sc)
+    find_checks(dev, compare, cw)
 
     # -- 3. the main path -------------------------------------------------
     pat_file = pathlib.Path(__file__).resolve().parent / (
@@ -2627,7 +2712,7 @@ def run(dev) -> int:
     for k, v in launches.items():
         # window_count_halo is the flow path's kernel (phase 6), window_find
         # attribution's (phase 10).
-        if k not in ("window_count_halo", "window_find"):
+        if k not in ("window_count_halo", "window_find", "window_find_rerun"):
             check(v > 0, f"{k} was not launched by the main path")
     check(counts.shape == (len(patterns),) and counts.dtype == np.int32,
           f"counts shape/dtype {counts.shape} {counts.dtype}")
@@ -2912,7 +2997,14 @@ def run(dev) -> int:
     find_record = attribution_phase(dev, card, cw, ct, matcher, pat_file, cap, batch, counts, big,
                                     rules_file, cap2, batch2, big_counts,
                                     flow_capture(patterns, SEED), flow_counts)
+    find_record["max_abs_err"] = max(find_record["max_abs_err"], max_err["window_find"])
     rules_file.unlink()
+    # Rows 1 and 4 build their probe table with the function window_find
+    # shares (probe.cuh build_table): their device times beside the earlier
+    # ones of PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W).
+    print(f"shared table build: window_count_totals device {fmt_ms(kdev['window_count_totals'])} "
+          f"(earlier: 0.9010 ms), window_count_halo device {fmt_ms(halo_record['device_ms'])} "
+          f"(earlier: 0.1135 ms) [{card}]")
 
     # -- 11. the DFA scans ------------------------------------------------------
     scan_records = dfa_phase(dev, card, sc, cw, ct, matcher, patterns, pat_file, cap, batch,

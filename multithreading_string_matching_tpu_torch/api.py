@@ -13,7 +13,7 @@ rule; the ``ac`` and ``kmp`` engines run the DFA scan kernels of
 ops/scan.py.  It raises when CUDA is missing or the kernels do not build,
 and never carries on on the CPU.  ``device="cpu"`` runs the same paths
 through the kernels' plain PyTorch versions.  :meth:`Matcher.find_matches` reports where
-each match is, on the window kernels' emit mode (``window_find``) whatever
+each match is, on the ordered find kernel (``window_find``) whatever
 the engine, as the JAX package's always takes its window program.
 """
 

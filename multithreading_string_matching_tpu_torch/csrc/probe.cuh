@@ -86,11 +86,8 @@
 // the zeroed output row by integer atomicAdd at each hit (hits are rare:
 // the output, not the atomics, is the per-row form's cost).
 //
-// Emit (kEmit, window form only: no filter, no halo): each match takes a
-// slot k = atomicAdd(cursor, 1) of a 64-bit cursor and, when k < emit_cap,
-// writes the int32 triple (row, start, pattern) there.  Slots are taken in
-// no fixed order; the caller sizes the buffer from a totals launch over the
-// same tile, checks cursor == that total, and sorts.
+// The table build (build_table) is shared with the ordered find kernel of
+// window_find.cu, which scans flattened byte tiles instead of rows.
 
 #pragma once
 
@@ -121,9 +118,7 @@ struct Args {
   const uint32_t* words;      // uint32[U, kw]
   const uint32_t* masks;      // uint32[U, kw]
   const int32_t* lens;        // int32[U]
-  int32_t* out;               // int32[U] (totals), int32[n, U] (per row) or int32[cap, 3] (emit)
-  unsigned long long* cursor; // emit only: matches found so far
-  int64_t emit_cap;           // emit only: rows of out
+  int32_t* out;               // int32[U] (totals) or int32[n, U] (per row)
   int64_t n, L;
   int U, K, kw, pc;           // pc: the probe column (0, or K for the filter)
   int min_end;                // halo mode only
@@ -188,9 +183,97 @@ __device__ __forceinline__ int stage_segment(uint4* s_stage4, const uint8_t* row
   return d;
 }
 
-template <bool kFilter, bool kPerRow, bool kHalo, bool kEmit = false>
+// The shared-memory state of one probe table besides its entries and heads.
+struct TableShared {
+  uint32_t map[kMapWords];  // bit b: some key's low 16 bits can be b
+  uint32_t mask[kMaxMasks];
+  uint32_t wild;            // head of the wildcard chain
+  int wild_min;             // the shortest wildcard pattern
+  int map_off;              // a mask the map cannot hold: look up everywhere
+};
+
+// What a thread keeps in registers of a built table.
+struct Probe {
+  uint32_t mk[kMaxMasks];  // the distinct probe masks, 0 past nm
+  int nm;
+  uint32_t wild;
+  int wild_min;
+  bool map_on;
+};
+
+// Build the probe table of cu patterns (tables words/masks of row stride
+// kw, probe column pc, lengths lens, all offset to the chunk's first
+// pattern) in T = 2^(32 - shift) heads, with the whole block at work; clears
+// hist[0, cu) when hist is given.  Starts and ends with a block barrier, so
+// a caller may rebuild over a table that threads were reading.
+__device__ __forceinline__ Probe build_table(TableShared& st, uint2* s_ent, uint32_t* s_head,
+                                             int32_t* hist, int T, int shift,
+                                             const uint32_t* words, const uint32_t* masks,
+                                             const int32_t* lens, int cu, int kw, int pc) {
+  __syncthreads();  // the previous table's readers are done
+  for (int j = threadIdx.x; j < T; j += kThreads) s_head[j] = kEnd;
+  if (hist != nullptr) {
+    for (int j = threadIdx.x; j < cu; j += kThreads) hist[j] = 0;
+  }
+  for (int j = threadIdx.x; j < kMapWords; j += kThreads) st.map[j] = 0u;
+  if (threadIdx.x < kMaxMasks) st.mask[threadIdx.x] = 0u;
+  if (threadIdx.x == 0) {
+    st.wild = kEnd;
+    st.wild_min = INT_MAX;
+    st.map_off = 0;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < cu; j += kThreads) {
+    const int64_t g = static_cast<int64_t>(j) * kw + pc;
+    const uint32_t m = __ldg(masks + g);
+    if (m != 0u && (__ldg(words + g) & m) == __ldg(words + g)) mask_slot(st.mask, m);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < cu; j += kThreads) {
+    const int64_t g = static_cast<int64_t>(j) * kw + pc;
+    const uint32_t w = __ldg(words + g), m = __ldg(masks + g);
+    if ((w & m) != w) continue;  // can never fire
+    int mi = -1;
+    for (int i = 0; i < kMaxMasks && m != 0u; ++i) {
+      if (st.mask[i] == m) {
+        mi = i;
+        break;
+      }
+    }
+    uint32_t next;
+    if (mi >= 0) {
+      next = atomicExch(&s_head[bucket(w, mi, shift)], static_cast<uint32_t>(j));
+      const uint32_t lo = m & 0xFFFFu;
+      if (lo == 0xFFFFu) {
+        atomicOr(&st.map[(w & 0xFFFFu) >> 5], 1u << (w & 31u));
+      } else if (lo == 0xFFu) {
+        for (uint32_t b = w & 0xFFu; b < 65536u; b += 256u) atomicOr(&st.map[b >> 5], 1u << (b & 31u));
+      } else {
+        st.map_off = 1;
+      }
+    } else {
+      next = atomicExch(&st.wild, static_cast<uint32_t>(j));
+      atomicMin(&st.wild_min, __ldg(lens + j));
+      mi = kWildTag;
+    }
+    s_ent[j] = make_uint2(w, (static_cast<uint32_t>(mi) << 16) | next);
+  }
+  __syncthreads();
+  Probe pr;
+  pr.nm = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxMasks; ++i) {
+    pr.mk[i] = st.mask[i];
+    pr.nm += pr.mk[i] != 0u;
+  }
+  pr.wild = st.wild;
+  pr.wild_min = st.wild_min;
+  pr.map_on = st.map_off == 0;
+  return pr;
+}
+
+template <bool kFilter, bool kPerRow, bool kHalo>
 __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
-  static_assert(!kEmit || (!kFilter && !kPerRow && !kHalo), "emit is a window-form mode");
   extern __shared__ uint4 smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   uint4* s_stage4 = smem + warp * (a.stage_bytes / 16);                       // [kWarps][stage_bytes]
@@ -198,11 +281,8 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
   uint2* s_ent = reinterpret_cast<uint2*>(smem + kWarps * (a.stage_bytes / 16));  // [chunk]
   int32_t* s_hist = reinterpret_cast<int32_t*>(s_ent + a.chunk);              // [chunk], totals
   uint32_t* s_head = reinterpret_cast<uint32_t*>(s_hist + a.chunk);           // [1 << bits]
-  __shared__ uint32_t s_map[kMapWords];   // bit b: some key's low 16 bits can be b
-  __shared__ int s_map_off;               // a mask the map cannot hold: look up everywhere
-  __shared__ uint32_t s_mask[kMaxMasks];
-  __shared__ uint32_t s_wild;       // head of the wildcard chain
-  __shared__ int s_wild_min;        // the shortest wildcard pattern
+  __shared__ TableShared st;
+  const uint32_t* s_map = st.map;
 
   const int T = 1 << a.bits, shift = 32 - a.bits;
   const int vk = kFilter ? 0 : 1;  // first word to verify after the probe
@@ -213,64 +293,15 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
     const uint32_t* masks = a.masks + static_cast<int64_t>(u0) * a.kw;
     const int32_t* lens = a.lens + u0;
 
-    // -- build the probe table --------------------------------------------
-    __syncthreads();  // the previous chunk's readers are done
-    for (int j = threadIdx.x; j < T; j += kThreads) s_head[j] = kEnd;
-    for (int j = threadIdx.x; j < cu; j += kThreads) s_hist[j] = 0;
-    for (int j = threadIdx.x; j < kMapWords; j += kThreads) s_map[j] = 0u;
-    if (threadIdx.x < kMaxMasks) s_mask[threadIdx.x] = 0u;
-    if (threadIdx.x == 0) {
-      s_wild = kEnd;
-      s_wild_min = INT_MAX;
-      s_map_off = 0;
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < cu; j += kThreads) {
-      const int64_t g = static_cast<int64_t>(j) * a.kw + a.pc;
-      const uint32_t m = __ldg(masks + g);
-      if (m != 0u && (__ldg(words + g) & m) == __ldg(words + g)) mask_slot(s_mask, m);
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < cu; j += kThreads) {
-      const int64_t g = static_cast<int64_t>(j) * a.kw + a.pc;
-      const uint32_t w = __ldg(words + g), m = __ldg(masks + g);
-      if ((w & m) != w) continue;  // can never fire
-      int mi = -1;
-      for (int i = 0; i < kMaxMasks && m != 0u; ++i) {
-        if (s_mask[i] == m) {
-          mi = i;
-          break;
-        }
-      }
-      uint32_t next;
-      if (mi >= 0) {
-        next = atomicExch(&s_head[bucket(w, mi, shift)], static_cast<uint32_t>(j));
-        const uint32_t lo = m & 0xFFFFu;
-        if (lo == 0xFFFFu) {
-          atomicOr(&s_map[(w & 0xFFFFu) >> 5], 1u << (w & 31u));
-        } else if (lo == 0xFFu) {
-          for (uint32_t b = w & 0xFFu; b < 65536u; b += 256u) atomicOr(&s_map[b >> 5], 1u << (b & 31u));
-        } else {
-          s_map_off = 1;
-        }
-      } else {
-        next = atomicExch(&s_wild, static_cast<uint32_t>(j));
-        atomicMin(&s_wild_min, __ldg(lens + j));
-        mi = kWildTag;
-      }
-      s_ent[j] = make_uint2(w, (static_cast<uint32_t>(mi) << 16) | next);
-    }
-    __syncthreads();
+    const Probe pr = build_table(st, s_ent, s_head, kPerRow ? nullptr : s_hist, T, shift, words,
+                                 masks, lens, cu, a.kw, a.pc);
     uint32_t mk[kMaxMasks];
-    int nm = 0;
 #pragma unroll
-    for (int i = 0; i < kMaxMasks; ++i) {
-      mk[i] = s_mask[i];
-      nm += mk[i] != 0u;
-    }
-    const uint32_t wild = s_wild;
-    const int wild_min = s_wild_min;
-    const bool map_on = s_map_off == 0;
+    for (int i = 0; i < kMaxMasks; ++i) mk[i] = pr.mk[i];
+    const int nm = pr.nm;
+    const uint32_t wild = pr.wild;
+    const int wild_min = pr.wild_min;
+    const bool map_on = pr.map_on;
 
     // -- scan the rows, one per warp -----------------------------------------
     for (int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + warp; row < a.n;
@@ -310,15 +341,7 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
           for (int k = vk; k < a.K; ++k) {
             if ((word_at(s_stage, d + s + 4 * k) & __ldg(masks + g + k)) != __ldg(words + g + k)) return;
           }
-          if (kEmit) {
-            const unsigned long long k = atomicAdd(a.cursor, 1ull);
-            if (k < static_cast<unsigned long long>(a.emit_cap)) {
-              int32_t* t = a.out + 3 * k;
-              t[0] = static_cast<int32_t>(row);
-              t[1] = static_cast<int32_t>(seg + s);
-              t[2] = u0 + static_cast<int32_t>(j);
-            }
-          } else if (kPerRow) {
+          if (kPerRow) {
             atomicAdd(&a.out[row * a.U + u0 + j], 1);
           } else {
             atomicAdd(&s_hist[j], 1);
@@ -349,7 +372,7 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
       }
     }
 
-    if (!kPerRow && !kEmit) {
+    if (!kPerRow) {
       __syncthreads();
       for (int j = threadIdx.x; j < cu; j += kThreads) {
         if (s_hist[j]) atomicAdd(&a.out[u0 + j], s_hist[j]);
@@ -361,7 +384,7 @@ __global__ void __launch_bounds__(kThreads) probe_count_kernel(const Args a) {
 // Choose the layout, opt in to the shared memory it needs, and launch one
 // block per resident slot of the card (at most one per kWarps rows), reps
 // times over.
-template <bool kFilter, bool kPerRow, bool kHalo, bool kEmit = false>
+template <bool kFilter, bool kPerRow, bool kHalo>
 cudaError_t probe_launch(Args a, int reps, int device, cudaStream_t stream) {
   a.chunk = a.U < kMaxChunk ? a.U : kMaxChunk;
   a.bits = table_bits(a.U);
@@ -372,7 +395,7 @@ cudaError_t probe_launch(Args a, int reps, int device, cudaStream_t stream) {
   a.stage_bytes = ((a.cap + 4 * a.K + 15 + 15) / 16 + 1) * 16;
   const size_t smem = static_cast<size_t>(kWarps) * a.stage_bytes + 8u * a.chunk +
                       4u * a.chunk + 4u * (1u << a.bits);
-  auto kernel = probe_count_kernel<kFilter, kPerRow, kHalo, kEmit>;
+  auto kernel = probe_count_kernel<kFilter, kPerRow, kHalo>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;

@@ -7,9 +7,8 @@
 // and PallasWindowMatcher._one_tile_rows (per_row=True, int32[n, U]); and,
 // in its halo mode, the TPU kernel _make_halo_kernel as launched by
 // PallasWindowMatcher._halo_run (the flow stream's scan rounds).
-// Its emit mode (msm_window_find) has no TPU kernel: it replaces the XLA
-// bitmap multithreading_string_matching_tpu/ops/window.py::
-// _window_bitmap_group and the host np.nonzero of find_matches.
+// Every match as an ordered triple (window_find) is window_find.cu's
+// kernel, on the same table build (probe.cuh).
 //
 // What it computes, for every row r, position i < L and pattern u:
 //   w_k      = little-endian uint32 of payload[r, i+4k .. i+4k+3], 0 past L
@@ -22,9 +21,6 @@
 //              lengths[r] is the row's valid bytes halo included, min_end = H
 //              gives each match to the round its end falls in, and ms[r] =
 //              H - real halo bytes keeps matches out of fabricated zeros)
-//   emit     : out[k] = (r, i, u) for each hit, k from an atomic cursor
-//              (window_find: the totals launch over the same tile sizes
-//              the buffer; the wrapper checks cursor == total and sorts)
 // Outputs are in build (unique-pattern) order, as the TPU kernel's were.
 //
 // How: the hashed probe of probe.cuh with word 0 as each pattern's probe
@@ -59,7 +55,6 @@
 // - Halo mode: a row's scan starts at max(ms[r], 0), so positions that
 //   cannot count are never staged.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -69,18 +64,16 @@ namespace {
 
 constexpr int kMaxWords = 2048;  // K limit: a segment stages cap + 4K bytes
 
-template <bool kPerRow, bool kHalo = false, bool kEmit = false>
+template <bool kPerRow, bool kHalo = false>
 int launch(const void* payload, const void* lengths, const void* words,
            const void* masks, const void* lens, void* out, long long n,
            long long L, int U, int K, int reps, int device, void* stream,
-           const void* min_start = nullptr, int min_end = 0,
-           void* cursor = nullptr, long long cap = 0) {
+           const void* min_start = nullptr, int min_end = 0) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0 || L <= 0 || U <= 0) return 0;
   if (K <= 0 || K > kMaxWords || reps <= 0 || reps > 65535 || (kPerRow && reps != 1) ||
-      (kHalo && (min_start == nullptr || min_end < 0)) ||
-      (kEmit && (cursor == nullptr || cap < 0 || reps != 1 || n > INT_MAX || L > INT_MAX)))
+      (kHalo && (min_start == nullptr || min_end < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   msm_probe::Args a{};
   a.payload = static_cast<const uint8_t*>(payload);
@@ -90,8 +83,6 @@ int launch(const void* payload, const void* lengths, const void* words,
   a.masks = static_cast<const uint32_t*>(masks);
   a.lens = static_cast<const int32_t*>(lens);
   a.out = static_cast<int32_t*>(out);
-  a.cursor = static_cast<unsigned long long*>(cursor);
-  a.emit_cap = cap;
   a.n = n;
   a.L = L;
   a.U = U;
@@ -99,7 +90,7 @@ int launch(const void* payload, const void* lengths, const void* words,
   a.kw = K;
   a.pc = 0;
   a.min_end = min_end;
-  return static_cast<int>(msm_probe::probe_launch<false, kPerRow, kHalo, kEmit>(
+  return static_cast<int>(msm_probe::probe_launch<false, kPerRow, kHalo>(
       a, reps, device, static_cast<cudaStream_t>(stream)));
 }
 
@@ -138,18 +129,6 @@ int msm_window_count_halo(const void* payload, const void* eff, const void* ms,
                           void* stream) {
   return launch<false, true>(payload, eff, words, masks, lens, out, n, L, U, K,
                              1, device, stream, ms, min_end);
-}
-
-// Emit: every match of the tile as an int32 triple (row, start, unique
-// pattern) into out int32[cap, 3], at the slot an atomicAdd on *cursor
-// (uint64, which the caller has zeroed) gives it; slots at or past cap are
-// counted and not written.  n and L must each fit int32.
-int msm_window_find(const void* payload, const void* lengths, const void* words,
-                    const void* masks, const void* lens, void* cursor, long long cap,
-                    void* out, long long n, long long L, int U, int K, int device,
-                    void* stream) {
-  return launch<false, false, true>(payload, lengths, words, masks, lens, out, n, L, U, K,
-                                    1, device, stream, nullptr, 0, cursor, cap);
 }
 
 // The head slot of probe key `key` under the launch's mask_index-th probe

@@ -5,10 +5,11 @@ The CUDA kernels in ``csrc/window_count.cu`` replace the TPU kernel
 ``_make_kernel`` in its totals form (``_one_tile``, and ``_one_tile_repeated``
 through the totals kernel's repeats grid axis) and its per-row form
 (``_one_tile_rows``), and ``_make_halo_kernel`` (``_halo_run``, the flow
-stream's scan rounds).  Their emit mode, :func:`window_find`, finds every
-match as a ``(row, start, pattern)`` triple, where the JAX package builds an
-XLA bitmap and takes its nonzeros on the host (``ops/window.py``
-``_window_bitmap_group`` + ``find_matches``).  The library is built with
+stream's scan rounds).  :func:`window_find` (``csrc/window_find.cu``, a
+library of its own on the same table build) finds every match as a ``(row,
+start, pattern)`` triple in one ordered launch, where the JAX package
+builds an XLA bitmap and takes its nonzeros on the host (``ops/window.py``
+``_window_bitmap_group`` + ``find_matches``).  The libraries are built with
 ``nvcc`` from the checkout on first use (ops/_build.py) and bound with
 ctypes.
 
@@ -17,10 +18,11 @@ The wrappers :func:`window_count_totals`, :func:`window_count_rows`,
 tensors on the CPU and launch the kernel for tensors on a CUDA device; on a
 CUDA tensor they launch or raise, never fall back.  ``LAUNCHES`` counts
 kernel launches by name (a totals launch with ``reps > 1`` counts as
-``window_count_totals_repeated``), so a run can show that its main path
-went through the kernels.
+``window_count_totals_repeated``; a second ``window_find`` launch after a
+short capacity as ``window_find_rerun``), so a run can show that its main
+path went through the kernels.
 
-Both this library and the table kernels' (ops/cuda_table.py) look every
+These libraries and the table kernels' (ops/cuda_table.py) look every
 staged position up in a hash of the patterns' probe words, one lookup per
 distinct probe mask (``csrc/probe.cuh``).  A table whose probe column holds
 more than :data:`MAX_PROBE_MASKS` distinct non-zero masks is refused with
@@ -31,6 +33,7 @@ most four.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, Tuple
 
 import torch
@@ -44,6 +47,7 @@ from multithreading_string_matching_tpu_torch.ops.window import (
 )
 
 SOURCES = [CSRC_DIR / "window_count.cu"]
+FIND_SOURCES = [CSRC_DIR / "window_find.cu"]
 
 # csrc/probe.cuh: distinct non-zero probe masks a launch hashes (kMaxMasks).
 MAX_PROBE_MASKS = 8
@@ -52,7 +56,7 @@ MAX_PROBE_MASKS = 8
 # a wrapper launches its kernel.
 LAUNCHES: Dict[str, int] = {
     "window_count_totals": 0, "window_count_rows": 0, "window_count_totals_repeated": 0,
-    "window_count_halo": 0, "window_find": 0,
+    "window_count_halo": 0, "window_find": 0, "window_find_rerun": 0,
 }
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
@@ -65,15 +69,20 @@ LIBRARY = KernelLibrary("msm_window_count", SOURCES, {
     "msm_window_count_halo": [ctypes.c_void_p] * 7 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p],
-    # payload, lengths, words, masks, lens, cursor, cap, out, n, L, U, K, device, stream
-    "msm_window_find": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p] + _ARGS[6:]
-                       + [ctypes.c_int, ctypes.c_void_p],
     # key, mask index, patterns, out slot (no device work)
     "msm_probe_bucket": [ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
                          ctypes.POINTER(ctypes.c_int)],
 })
 load_library = LIBRARY.load
 BUILD_INFO = LIBRARY.build_info
+FIND_LIBRARY = KernelLibrary("msm_window_find", FIND_SOURCES, {
+    # payload, lengths, words, masks, lens, out, cap, scratch, n, L, U, K, device, stream
+    "msm_window_find": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p] + _ARGS[6:]
+                       + [ctypes.c_int, ctypes.c_void_p],
+    # n, L, out scratch words (no device work)
+    "msm_window_find_scratch": [ctypes.c_longlong, ctypes.c_longlong,
+                                ctypes.POINTER(ctypes.c_longlong)],
+})
 
 
 def check_tile(payload, lengths, tables) -> None:
@@ -230,17 +239,36 @@ def window_count_halo(x, eff, ms, words, masks, lens, min_end: int) -> torch.Ten
     return out
 
 
-def window_find(payload, lengths, words, masks, lens) -> torch.Tensor:
+def find_with_capacity(launch, cap: int) -> torch.Tensor:
+    """The first M rows of ``launch(cap)``'s output, with at most one rerun.
+
+    ``launch(c)`` runs the find kernel into a fresh ``[c, 3]`` buffer and
+    returns ``(buffer, M)``: the exact match count, of which only the first
+    ``min(M, c)`` rows were written.  When ``M > cap`` the launch runs once
+    more at capacity M (counted as ``window_find_rerun``); a rerun that
+    reports another M raises ``RuntimeError``."""
+    out, m = launch(cap)
+    LAUNCHES["window_find"] += 1
+    if m > cap:
+        out, again = launch(m)
+        LAUNCHES["window_find_rerun"] += 1
+        if again != m:
+            raise RuntimeError(f"window_find counted {m} matches, then {again} on its rerun")
+    return out[:m]
+
+
+def window_find(payload, lengths, words, masks, lens, cap=None) -> torch.Tensor:
     """Every match of one ``uint8[n, L]`` tile as int64[M, 3] ``(row, start,
     unique pattern)`` triples, sorted by row, then start, then pattern.
 
-    On the card: ``window_count_totals`` over the tile gives the exact M
-    (one host sync), the emit launch writes the triples into an [M, 3]
-    buffer through an atomic cursor, and ``RuntimeError`` is raised unless
-    the cursor ends at M (the two modes disagree).  The atomics leave the
-    triples in no fixed order; a sort on the key ``(row * L + start) * U +
-    u`` makes the result deterministic.  Tiles of ``n * L >= 2^31`` are
-    refused (rows and starts are int32 in the kernel)."""
+    On the card: one launch writes the triples in that order (flattened
+    positions, tile prefixes by decoupled look-back; csrc/window_find.cu)
+    into a buffer of ``cap`` rows (by default ``n``, or 1.25 times the
+    most matches a row these tables have given, ``n`` times over) and
+    leaves the exact M in a device scalar, read with one host sync; a short
+    buffer costs one rerun at M (:func:`find_with_capacity`).
+    Tiles of ``n * L >= 2^31`` are refused (flat positions are int32 in the
+    kernel)."""
     if device_kind(payload) == "cpu":
         return window_find_plain(words, masks, lens, payload, lengths)
     _check(payload, lengths, words, masks, lens)
@@ -250,21 +278,26 @@ def window_find(payload, lengths, words, masks, lens) -> torch.Tensor:
     dev = payload.device
     if n == 0 or L == 0 or U == 0:
         return torch.zeros((0, 3), dtype=torch.int64, device=dev)
-    m = int(window_count_totals(payload, lengths, words, masks, lens).sum(dtype=torch.int64))
-    out = torch.empty((m, 3), dtype=torch.int32, device=dev)
-    cursor = torch.zeros(1, dtype=torch.int64, device=dev)
-    LIBRARY.call("msm_window_find", payload.data_ptr(), lengths.data_ptr(), words.data_ptr(),
-                 masks.data_ptr(), lens.data_ptr(), cursor.data_ptr(), m, out.data_ptr(),
-                 n, L, U, K, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["window_find"] += 1
-    found = int(cursor.item())
-    if found != m:
-        raise RuntimeError(
-            f"window_find emitted {found} matches where window_count_totals counted {m} "
-            f"on a {n} x {L} tile"
-        )
-    t = out.long()
-    return t[torch.argsort((t[:, 0] * L + t[:, 1]) * U + t[:, 2])]
+    size = ctypes.c_longlong()
+    FIND_LIBRARY.call("msm_window_find_scratch", n, L, ctypes.byref(size))
+    scratch = torch.empty(size.value, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(cap: int):
+        out = torch.empty((cap, 3), dtype=torch.int64, device=dev)
+        FIND_LIBRARY.call("msm_window_find", payload.data_ptr(), lengths.data_ptr(),
+                          words.data_ptr(), masks.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                          cap, scratch.data_ptr(), n, L, U, K, dev.index or 0, stream)
+        return out, int(scratch[1])
+
+    density = getattr(words, "_msm_find_density", 0.0)
+    if cap is None:
+        cap = max(n, math.ceil(1.25 * density * n))
+    elif cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    found = find_with_capacity(launch, cap)
+    words._msm_find_density = max(density, found.shape[0] / n)
+    return found
 
 
 class TileCountSurface:

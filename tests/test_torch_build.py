@@ -79,7 +79,7 @@ def test_nvcc_gets_only_cu_files(sources, monkeypatch):
 def test_both_kernel_libraries_watch_the_probe_header():
     header = _build.CSRC_DIR / "probe.cuh"
     assert header.exists()
-    for lib in (cw.LIBRARY, ct.LIBRARY):
+    for lib in (cw.LIBRARY, cw.FIND_LIBRARY, ct.LIBRARY):
         assert all(s.suffix == ".cu" for s in lib.sources)
         assert header in _build.dependencies(lib.sources)
 

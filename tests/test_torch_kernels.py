@@ -9,6 +9,7 @@ This file imports no jax, so it also runs where jax is not installed::
 Counts are integers: every comparison is exact (tolerance 0).
 """
 
+import ctypes
 import pathlib
 
 import numpy as np
@@ -696,7 +697,7 @@ def test_mxu_wrapper_refuses_bad_inputs(cuda_device):
                          torch.cuda.current_stream().cuda_stream)
 
 
-# -- window_find: the emit mode of the window kernels ---------------------------
+# -- window_find: one ordered launch (csrc/window_find.cu) ------------------------
 
 FIND_CASES = {
     **{f"probe-{k}": v for k, v in PROBE_CASES.items()
@@ -709,9 +710,8 @@ FIND_CASES = {
 
 @pytest.mark.parametrize("case", sorted(FIND_CASES))
 def test_window_find_equals_plain(cuda_device, case):
-    """The emit launch writes every match once: its sorted triples equal
-    the plain bitmap's nonzeros, and their count equals the totals kernel's
-    (the wrapper raises unless the cursor ends there)."""
+    """One launch writes every match once, in order: the triples equal the
+    plain bitmap's sorted nonzeros, and their count the totals kernel's."""
     pats, seed, n, L, alphabet = FIND_CASES[case]
     pats = pats() if callable(pats) else pats
     p, ln = _tile(seed, n, L, alphabet, cuda_device,
@@ -730,8 +730,9 @@ def test_window_find_equals_plain(cuda_device, case):
 
 @pytest.mark.parametrize("L", [2 * 2048 + 37, 3 * 2048])
 def test_window_find_segment_boundaries(cuda_device, L):
-    """Matches planted across every kSeg = 2,048-start segment boundary of
-    long rows are each found once, at the right start."""
+    """Matches planted across every 2,048-byte boundary of long rows (and so
+    across the kernel's 16,384-position tiles) are each found once, at the
+    right start."""
     pats = [b"abcdefgh", b"xyz", b"hxyza"]
     rng = np.random.default_rng(L)
     payloads = rng.integers(ord("0"), ord("9") + 1, size=(6, L)).astype(np.uint8)
@@ -760,21 +761,112 @@ def test_window_find_refuses_bad_inputs(cuda_device):
         cw.window_find(p[:, ::2], ln, words, masks, lens)
     with pytest.raises(ValueError):
         cw.window_find(p, ln[:3], words, masks, lens)
-    cursor = torch.zeros(1, dtype=torch.int64, device=cuda_device)
-    out = torch.zeros((4, 3), dtype=torch.int32, device=cuda_device)
-    # The C entry point counts past cap and writes nothing there.
-    cw.LIBRARY.call("msm_window_find", p.data_ptr(), ln.data_ptr(), words.data_ptr(),
-                    masks.data_ptr(), lens.data_ptr(), cursor.data_ptr(), 0, out.data_ptr(),
-                    8, 64, words.shape[0], words.shape[1], 0,
-                    torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(ValueError, match="cap"):
+        cw.window_find(p, ln, words, masks, lens, cap=-1)
+    size = ctypes.c_longlong()
+    cw.FIND_LIBRARY.call("msm_window_find_scratch", 8, 64, ctypes.byref(size))
+    assert size.value == 3  # the ticket, M and one tile's flag
+    scratch = torch.full((size.value,), -1, dtype=torch.int64, device=cuda_device)
+    out = torch.zeros((4, 3), dtype=torch.int64, device=cuda_device)
+    # The C entry point clears its scratch, counts past cap and writes
+    # nothing there.
+    cw.FIND_LIBRARY.call("msm_window_find", p.data_ptr(), ln.data_ptr(), words.data_ptr(),
+                         masks.data_ptr(), lens.data_ptr(), out.data_ptr(), 0,
+                         scratch.data_ptr(), 8, 64, words.shape[0], words.shape[1], 0,
+                         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
-    assert int(cursor) == int(window_count(words, masks, lens, p, ln).sum()) > 4
+    assert int(scratch[1]) == int(window_count(words, masks, lens, p, ln).sum()) > 4
     assert not out.any()
-    with pytest.raises(RuntimeError, match="launch failed"):
-        cw.LIBRARY.call("msm_window_find", p.data_ptr(), ln.data_ptr(), words.data_ptr(),
-                        masks.data_ptr(), lens.data_ptr(), None, 0, out.data_ptr(),
-                        8, 64, words.shape[0], words.shape[1], 0,
-                        torch.cuda.current_stream().cuda_stream)
+    for bad in ((None, 8, 64), (scratch.data_ptr(), 1 << 16, 1 << 15)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cw.FIND_LIBRARY.call("msm_window_find", p.data_ptr(), ln.data_ptr(),
+                                 words.data_ptr(), masks.data_ptr(), lens.data_ptr(),
+                                 out.data_ptr(), 0, bad[0], bad[1], bad[2], words.shape[0],
+                                 words.shape[1], 0, torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 7, 8])
+def test_window_find_narrow_rows(cuda_device, L):
+    """Rows narrower than a lane's 4 positions and a window: every position
+    takes the full probe, over many tiles."""
+    pats = [b"a", b"ab", b"\x00", b"a\x00", b"ba", b"\x00\x00a"]
+    rng = np.random.default_rng(200 + L)
+    n = 3 * 16384 // L + 7
+    payloads = rng.choice(np.frombuffer(b"ab\x00", np.uint8), size=(n, L)).astype(np.uint8)
+    lengths = rng.integers(-1, L + 4, size=n).astype(np.int32)
+    p, ln = torch.from_numpy(payloads).to(cuda_device), torch.from_numpy(lengths).to(cuda_device)
+    words, masks, lens = WindowProgram.build(pats).tables(cuda_device)
+    want = window_find_plain(words, masks, lens, p, ln)
+    got = cw.window_find(p, ln, words, masks, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and want.shape[0] > n // 4
+
+
+def _find_trap(name):
+    """(patterns, payloads, lengths) of the ordered kernel's traps at sizes
+    that cross its 16,384-position tiles and turn its 3-stage ring."""
+    rng = np.random.default_rng(sum(name.encode()))
+    nul = [b"\x00", b"A\x00", b"\x00\x00", b"AA\x00\x00", b"A\x00\x00\x00\x00"]
+    if name == "dense-A":  # up to 3 + 5 patterns at every position
+        p = np.full((700, 131), ord("A"), np.uint8)
+        p[::3, 100:] = 0
+        return [b"A", b"AA", b"AAA"] + nul, p, rng.integers(0, 140, 700).astype(np.int32)
+    if name == "row-boundary":  # heads at row ends, tails at the next row's start
+        L = 45
+        p = rng.integers(ord("a"), ord("f"), size=(3000, L)).astype(np.uint8)
+        for r in range(2999):
+            k = 1 + r % 3
+            p[r, L - k:] = np.frombuffer(b"wxyz"[:k], np.uint8)
+            p[r + 1, : 4 - k] = np.frombuffer(b"wxyz"[k:], np.uint8)
+        p[::97, 10:14] = np.frombuffer(b"wxyz", np.uint8)
+        return [b"wxyz", b"vwxyz1", b"z1", b"yz"], p, np.full(3000, L, np.int32)
+    if name == "lengths-past-width":  # NUL-tailed patterns over zeros past L
+        L = 37
+        p = rng.choice(np.frombuffer(b"A\x00", np.uint8), size=(4000, L)).astype(np.uint8)
+        p[:, 0] = ord("A")
+        lens = rng.integers(L - 2, L + 9, size=4000).astype(np.int32)
+        return nul, p, lens
+    if name == "zero-length-rows":
+        p = rng.choice(np.frombuffer(b"ab\x00", np.uint8), size=(2500, 77)).astype(np.uint8)
+        lens = rng.integers(0, 78, 2500).astype(np.int32)
+        lens[::2] = 0
+        lens[1::10] = -5
+        return [b"ab", b"\x00", b"b\x00a", b"abab"], p, lens
+    if name == "chunks-at-one-position":  # 9,000 patterns, hits of three chunks at one start
+        pats = [b"c%05d" % i for i in range(9000)] + [b"c", b"c0", b"c00", b"c000"]
+        p = rng.choice(np.frombuffer(b"c0123456789", np.uint8), size=(300, 300)).astype(np.uint8)
+        for r in range(300):
+            p[r, r % 290 : r % 290 + 6] = np.frombuffer(b"c%05d" % (r * 29 % 9000), np.uint8)
+        return pats, p, rng.integers(0, 301, 300).astype(np.int32)
+    raise KeyError(name)
+
+
+FIND_TRAPS = ["dense-A", "row-boundary", "lengths-past-width", "zero-length-rows",
+              "chunks-at-one-position"]
+
+
+@pytest.mark.parametrize("name", FIND_TRAPS)
+def test_window_find_traps_equal_plain(cuda_device, name):
+    """The traps of the one-pass kernel, each over many tiles, and again in
+    row slices whose bases fall at unaligned addresses, and with a forced
+    rerun (a first capacity of 1 row)."""
+    pats, payloads, lengths = _find_trap(name)
+    words, masks, lens = WindowProgram.build(pats).tables(cuda_device)
+    p, ln = torch.from_numpy(payloads).to(cuda_device), torch.from_numpy(lengths).to(cuda_device)
+    want = window_find_plain(words, masks, lens, p, ln)
+    got = cw.window_find(p, ln, words, masks, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and want.shape[0] > 0
+    assert p.numel() > 3 * 16384
+    before = dict(cw.LAUNCHES)
+    assert torch.equal(cw.window_find(p, ln, words, masks, lens, cap=1), want)
+    assert cw.LAUNCHES["window_find"] == before["window_find"] + 1
+    assert cw.LAUNCHES["window_find_rerun"] == before["window_find_rerun"] + (want.shape[0] > 1)
+    for s0 in (1, 3, 7):
+        s1 = s0 + payloads.shape[0] // 2
+        sub = window_find_plain(words, masks, lens, p[s0:s1], ln[s0:s1])
+        assert p[s0:s1].data_ptr() % 16 != 0 or payloads.shape[1] % 16 == 0
+        assert torch.equal(cw.window_find(p[s0:s1], ln[s0:s1], words, masks, lens), sub)
 
 
 @pytest.mark.parametrize("pats, nocase", [(load_patterns(STANDIN), False),
