@@ -184,6 +184,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    beside the filter and window kernels there; the AC flow stream and its
    rounds; the walls of ``match --engine pallas|ac|kmp [--stream]`` (median
    of 3, in turns).
+12. The live path (``live``, parallel/stream.py ``StreamMatcher``) and the
+   new inputs: phase 3's capture replayed in batches of 10 with the
+   stand-in set (packed tiles, ``window_count_totals``) and with it plus a
+   NUL pattern (unpacked, one launch a batch), phase 5's with the 3,072
+   rules (packed, the filter class kernels), each through a StreamMatcher
+   driven directly with its launches counted (tiles, not batches) and
+   through ``live ... 4 udp`` (median of 3 walls); counts equal
+   ``serial``'s and ``packets_seen`` the packets the udp filter passes.  The
+   device's busy share of one replay (torch.profiler); ``live
+   --dump-matches`` byte-equal to ``match --dump-matches`` (the rows
+   kernels); payloads of ~6,000 bytes through ``window_count_halo`` and
+   ``ac_scan`` with carried states; a StreamMatcher and the window and AC
+   flow streams resumed from checkpoints; phase 3's capture as pcapng under
+   ``match``, ``--stream`` and ``--engine ac``, its ingest seconds beside
+   the classic ones; ``match --profile`` writing a trace that names the
+   window_count launches.  Each kernel is held against its plain version at
+   this path's shapes; the records carry the launches as ``live_launches``.
 
 The line before the last is one JSON object with a record per kernel, each
 with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -211,7 +228,9 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2554,6 +2573,340 @@ def dfa_phase(dev, card: str, sc, cw, ct, matcher, patterns, pat_file, cap, batc
     return recs
 
 
+# -- the live path and the new inputs (phase 12) -------------------------------
+
+LIVE_RUNS = 3
+LONG_PACKETS = 3000
+
+
+def pcapng_of(pcap, path: pathlib.Path) -> pathlib.Path:
+    """Re-encode a classic capture as pcapng: one section (SHB), one
+    interface (IDB, microsecond ticks), an EPB per packet."""
+    def block(btype: int, body: bytes) -> bytes:
+        pad = (-len(body)) % 4
+        blen = 12 + len(body) + pad
+        return struct.pack("<II", btype, blen) + body + b"\x00" * pad + struct.pack("<I", blen)
+
+    parts = [block(0x0A0D0D0A, struct.pack("<IHHq", 0x1A2B3C4D, 1, 0, -1)),
+             block(0x00000001, struct.pack("<HHI", pcap.linktype, 0, pcap.snaplen))]
+    for i in range(pcap.num_packets):
+        data = pcap.packet(i).tobytes()
+        ticks = int(pcap.ts_sec[i]) * 1_000_000 + int(pcap.ts_frac[i])
+        parts.append(block(0x00000006, struct.pack(
+            "<IIIII", 0, ticks >> 32, ticks & 0xFFFFFFFF, len(data), int(pcap.origlens[i])) + data))
+    path.write_bytes(b"".join(parts))
+    return path
+
+
+def live_run(cli, argv):
+    """``({pattern: count}, sniffed, exit code, wall seconds, stderr)`` of one
+    ``live`` command run in process."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([str(a) for a in argv])
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    check(text.startswith("\nWork in progress...\nPress ctrl+c to stop sniffing procedure\n"),
+          f"live banner: {text[:200]!r}")
+    found = re.search(r"\n\n(\d+) packet sniffed\n\n", text)
+    check(found is not None, "live printed no sniffed line")
+    reported = {}
+    for line in text.splitlines():
+        if line.endswith(" times!"):
+            name, _, rest = line.rpartition(": ")
+            reported.setdefault(name, int(rest.split()[0]))
+    return reported, int(found[1]), rc, wall, err.getvalue()
+
+
+def launches_of(*modules) -> dict:
+    return {k: v for m in modules for k, v in m.LAUNCHES.items() if v}
+
+
+def live_phase(dev, card: str, cli, cw, ct, sc, matcher, patterns, pat_file, cap, counts, rules,
+               big, rules_file, cap2, big_counts, flow_cap, flow_counts, compare) -> dict:
+    """Phase 12; returns the launches of its main runs per kernel.  The
+    3,072 rules replay phase 5's capture (planted with them), the other
+    sets phase 3's."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch.api import Matcher
+    from multithreading_string_matching_tpu_torch.io.decode import (
+        bpf_protocol_mask,
+        extract_payloads,
+    )
+    from multithreading_string_matching_tpu_torch.io.live import FileReplaySource
+    from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
+    from multithreading_string_matching_tpu_torch.io.pcap import iter_pcap, read_pcap
+    from multithreading_string_matching_tpu_torch.io.synth import synth_udp_pcap
+    from multithreading_string_matching_tpu_torch.ops.bucketing import pack_rows
+    from multithreading_string_matching_tpu_torch.ops.scan import ac_scan_plain
+    from multithreading_string_matching_tpu_torch.ops.table import filter_count
+    from multithreading_string_matching_tpu_torch.ops.window import (
+        window_count,
+        window_count_halo_plain,
+    )
+    from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
+    from multithreading_string_matching_tpu_torch.parallel.stream import StreamMatcher
+
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="msm_torch_live_"))
+    pc = read_pcap(cap)
+    replays = {}
+    for c in (cap, cap2):
+        bs = list(FileReplaySource(c))
+        replays[c] = (bs, int(bpf_protocol_mask(read_pcap(c), "udp").sum()),
+                      sum(1 for b in bs if bpf_protocol_mask(b, "udp").any()))
+    batches, sniff_want, udp_batches = replays[cap]
+    nul_pats = patterns + [b"a\x00b"]
+    nul_file = tmp / "nul.txt"
+    nul_file.write_bytes(b"\n".join(nul_pats) + b"\n")
+    check(load_patterns(nul_file) == nul_pats, "the NUL rules file does not load back")
+    nul = Matcher(nul_pats, device=dev)
+    sets = {
+        "stand-in": (pat_file, patterns, matcher, counts, cap),
+        "3,072 rules": (rules_file, rules, big, big_counts, cap2),
+        "stand-in + NUL": (nul_file, nul_pats, nul, nul.count_pcap(cap, "udp"), cap),
+    }
+    for c, (bs, sn, ub) in replays.items():
+        print(f"live capture {c.name}: {c.stat().st_size} bytes, {sn} packets pass the udp "
+              f"filter, {len(bs)} batches of 10 ({ub} with a udp packet)")
+
+    # -- the kernels against their plain versions at this path's shapes -----
+    first = extract_payloads(pc, "udp", keep_invalid=True)
+    keep = bpf_protocol_mask(pc, "udp")[: first.payloads.shape[0]]
+    rows_p, rows_f = pack_rows(first.payloads[: pc.num_packets][keep][:4000],
+                               first.lengths[: pc.num_packets][keep][:4000].astype(np.int64),
+                               width=2048)
+    tile_p = torch.from_numpy(np.ascontiguousarray(rows_p[:1024])).to(dev)
+    tile_f = torch.from_numpy(np.ascontiguousarray(rows_f[:1024])).to(dev)
+    words, masks, lens = matcher.window.tables(dev)
+    compare("window_count_totals", cw.window_count_totals(tile_p, tile_f, words, masks, lens),
+            window_count(words, masks, lens, tile_p, tile_f), "a live packed tile [1024 x 2048]")
+    for c, tabs in zip(big.kernels.classes, big.kernels._tables):
+        compare("filter_count_totals", ct.filter_count_totals(tile_p, tile_f, *tabs, c.K),
+                filter_count(*tabs, tile_p, tile_f, c.K), f"a live packed tile, class K={c.K}")
+    dump_p = torch.from_numpy(np.ascontiguousarray(first.payloads[:1024])).to(dev)
+    dump_l = torch.from_numpy(np.ascontiguousarray(first.lengths[:1024])).to(dev)
+    compare("window_count_rows", cw.window_count_rows(dump_p, dump_l, words, masks, lens),
+            window_count(words, masks, lens, dump_p, dump_l, per_packet=True),
+            "a dump scan's rows [1024 x width]")
+    for c, tabs in zip(big.kernels.classes, big.kernels._tables):
+        compare("filter_count_rows", ct.filter_count_rows(dump_p, dump_l, *tabs, c.K),
+                filter_count(*tabs, dump_p, dump_l, c.K, per_row=True),
+                f"a dump scan's rows, class K={c.K}")
+
+    # -- the main runs: a StreamMatcher driven directly, launches counted ----
+    live_launches: dict = {}
+    walls = {}
+    for name, (pfile, pats, m, want, capture) in sets.items():
+        batches, sniff_want, udp_batches = replays[capture]
+        torch.cuda.synchronize()
+        reset_launches(cw, ct, sc)
+        t0 = time.perf_counter()
+        s = StreamMatcher(m)
+        for b in batches:
+            s.feed_pcap_slice(b, "udp", bpf_filter=True)
+        got = s.counts()
+        direct_s = time.perf_counter() - t0
+        launched = launches_of(cw, ct, sc)
+        for k, v in launched.items():
+            live_launches[k] = live_launches.get(k, 0) + v
+        check(np.array_equal(got, want), f"live {name}: counts differ from serial's")
+        check(s.packets_seen == sniff_want, f"live {name}: {s.packets_seen} packets seen, "
+              f"{sniff_want} pass the filter")
+        if name == "stand-in":
+            expect = {"window_count_totals": s.tiles_dispatched}
+        elif name == "3,072 rules":
+            expect = {"filter_count_totals": s.tiles_dispatched * len(m.kernels.classes)}
+        else:
+            expect = {"window_count_totals": udp_batches}
+            check(s.tiles_dispatched == 0, "the NUL set was packed")
+        check(launched == expect, f"live {name}: launches {launched}, expected {expect}")
+        check(name == "stand-in + NUL" or 0 < s.tiles_dispatched < udp_batches // 10,
+              f"live {name}: {s.tiles_dispatched} tiles for {udp_batches} batches")
+        # The command, median of LIVE_RUNS walls, each report checked.
+        runs = []
+        for _ in range(LIVE_RUNS):
+            reset_launches(cw, ct, sc)
+            reported, sniffed, rc, wall, err = live_run(cli, ["live", capture, pfile, "4", "udp"])
+            check(rc == 0, f"live {name} exited {rc}: {err[-2000:]}")
+            check(reported == nonzero(pats, want), f"live {name}: report differs from serial's")
+            check(sniffed == sniff_want, f"live {name}: {sniffed} packet sniffed")
+            check(launches_of(cw, ct, sc) == expect,
+                  f"live {name} command: launches {launches_of(cw, ct, sc)}, expected {expect}")
+            runs.append(wall)
+        walls[name] = statistics.median(runs)
+        print(f"live {name} ({len(pats)} patterns, {m.explain().get('pallas_kernel')}): command "
+              f"wall median {walls[name]:.4f} s of {LIVE_RUNS} ({', '.join(f'{w:.4f}' for w in runs)}); "
+              f"StreamMatcher driven directly {direct_s:.4f} s; {s.tiles_dispatched} tiles for "
+              f"{len(batches)} batches; launches {launched}; {int(got.sum())} matches = serial's "
+              f"[{card}]")
+    batches, sniff_want, udp_batches = replays[cap]
+    # The same command without [threads] (no prefetch thread), once.
+    reported, _, rc, wall, _ = live_run(cli, ["live", cap, pat_file, "udp"])
+    check(rc == 0 and reported == nonzero(patterns, counts), "live without threads")
+    print(f"live stand-in without [threads]: {wall:.4f} s (with 4: median "
+          f"{walls['stand-in']:.4f} s) [{card}]")
+
+    # -- the device's busy share of one live replay --------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        reported, _, rc, _, _ = live_run(cli, ["live", cap, pat_file, "4", "udp"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    check(rc == 0 and reported == nonzero(patterns, counts), "profiled live run")
+    busy = device_busy(prof)
+    check(busy.get("kernel_ms", 0) > 0, f"the profiled live run shows no device time: {busy}")
+    print(f"live stand-in under torch.profiler: wall {prof_wall:.4f} s, device busy "
+          f"{busy['busy_ms']:.4f} ms (kernels {busy['kernel_ms']:.4f}, copies "
+          f"{busy['copy_ms']:.4f}, {busy['events']} events) = busy share "
+          f"{busy['busy_ms'] / (prof_wall * 1e3):.6f} [{card}]")
+
+    # -- --dump-matches: the live dump is match's dump ------------------------
+    for name, key in (("stand-in", "window_count_rows"), ("3,072 rules", "filter_count_rows")):
+        pfile, capture = sets[name][0], sets[name][4]
+        live_dump, match_dump = tmp / "live.pcap", tmp / "match.pcap"
+        reset_launches(cw, ct, sc)
+        _, _, rc, wall, err = live_run(cli, ["live", capture, pfile, "udp", "--dump-matches",
+                                             live_dump])
+        check(rc == 0, f"live --dump-matches exited {rc}: {err[-2000:]}")
+        rows_launched = launches_of(cw, ct, sc)
+        check(rows_launched.get(key, 0) > 0, f"live --dump-matches ({name}): {rows_launched}")
+        live_launches[key] = live_launches.get(key, 0) + rows_launched[key]
+        cli_json(cli, ["match", "--pcap", capture, "--patterns", pfile, "--json",
+                       "--dump-matches", match_dump])
+        check(live_dump.read_bytes() == match_dump.read_bytes(),
+              f"live --dump-matches ({name}) differs from match --dump-matches")
+        print(f"live --dump-matches ({name}): {read_pcap(live_dump).num_packets} packets, "
+              f"byte-equal to match --dump-matches; {wall:.4f} s, launches {rows_launched} "
+              f"[{card}]")
+
+    # -- long payloads: the halo kernel and ac_scan with carried states -------
+    long_cap = tmp / "long.pcap"
+    synth_udp_pcap(long_cap, LONG_PACKETS, payload_len=6000, payload_len_jitter=1500,
+                   patterns=patterns, plant_rate=0.5, seed=SEED + 12)
+    long_want = Matcher(patterns, device=dev).count_pcap(long_cap, "udp")
+    long_plain = Matcher(patterns, engine="window", device=dev).count_pcap(long_cap, "udp")
+    check(np.array_equal(long_want, long_plain), "long payloads: one-shot kernels != plain")
+    long_batches = list(FileReplaySource(long_cap))
+    lb = extract_payloads(long_batches[0], "udp", keep_invalid=True)
+    H = max(int(matcher.window.max_len) - 1, 1)
+    x = np.zeros((lb.payloads.shape[0], H + 2048), np.uint8)
+    x[:, :H] = lb.payloads[:, 2048 - H : 2048]  # the halo before the second chunk
+    x[:, H:] = lb.payloads[:, 2048:4096]
+    xt = torch.from_numpy(x).to(dev)
+    eff = torch.from_numpy(np.clip(lb.lengths.astype(np.int64) - 2048 + H, 0, H + 2048)
+                           .astype(np.int32)).to(dev)
+    ms = torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
+    compare("window_count_halo", cw.window_count_halo(xt, eff, ms, words, masks, lens, H),
+            window_count_halo_plain(xt, eff, ms, H, (words, masks, lens)),
+            f"a long batch's second chunk [{x.shape[0]} x {H + 2048}]")
+    chunk = torch.from_numpy(np.ascontiguousarray(lb.payloads[:, 2048:4096])).to(dev)
+    rel = torch.from_numpy(np.clip(lb.lengths.astype(np.int64) - 2048, 0, 2048)
+                           .astype(np.int32)).to(dev)
+    cac = matcher.cac
+    states = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cac.dead + 1, size=x.shape[0]).astype(np.int32)).to(dev)
+    got_c, got_s = sc.ac_scan(cac, chunk, rel, states)
+    want_c, want_s = ac_scan_plain(cac, chunk, rel, states)
+    compare("ac_scan", got_c, want_c, "a long batch's chunk from carried states")
+    compare("ac_scan", got_s, want_s, "a long batch's chunk's states")
+    for engine, key in (("window", "window_count_halo"), ("ac", "ac_scan")):
+        torch.cuda.synchronize()
+        reset_launches(cw, ct, sc)
+        t0 = time.perf_counter()
+        s = StreamMatcher(matcher, packed=False, engine=engine)
+        for b in long_batches:
+            s.feed_pcap_slice(b, "udp", bpf_filter=True)
+        got = s.counts()
+        wall = time.perf_counter() - t0
+        launched = launches_of(cw, ct, sc)
+        check(np.array_equal(got, long_want), f"long payloads, engine={engine}: counts differ")
+        check(set(launched) == {key}, f"long payloads, engine={engine}: launches {launched}")
+        live_launches[key] = live_launches.get(key, 0) + launched[key]
+        print(f"long payloads ({LONG_PACKETS} packets of ~6,000 bytes), StreamMatcher "
+              f"engine={engine}: {launched} = count_pcap's and the plain version's counts "
+              f"({int(got.sum())} matches), {wall:.4f} s [{card}]")
+
+    # -- checkpoints ----------------------------------------------------------
+    half = len(batches) // 2
+    s = StreamMatcher(matcher)
+    for b in batches[:half]:
+        s.feed_pcap_slice(b, "udp", bpf_filter=True)
+    ckpt = s.save(tmp / "stream")
+    resumed = StreamMatcher(matcher)
+    resumed.load(ckpt)
+    for b in batches[half:]:
+        resumed.feed_pcap_slice(b, "udp", bpf_filter=True)
+    check(np.array_equal(resumed.counts(), counts) and resumed.packets_seen == sniff_want,
+          "a StreamMatcher resumed from its checkpoint differs from the uninterrupted run")
+    fm = Matcher(patterns, device=dev)
+    chunks = list(iter_pcap(flow_cap, batch_packets=8192))
+    for engine, key in (("window", "window_count_halo"), ("ac", "ac_scan")):
+        fs = FlowStreamMatcher(fm, "tcp", engine=engine)
+        for c in chunks[: len(chunks) // 2]:
+            fs.feed_pcap_slice(c)
+        ckpt = fs.save(tmp / f"flows_{engine}")
+        reset_launches(cw, ct, sc)
+        fs2 = FlowStreamMatcher(fm, "tcp", engine=engine)
+        fs2.load(ckpt)
+        for c in chunks[len(chunks) // 2 :]:
+            fs2.feed_pcap_slice(c)
+        fs2.flush()
+        check(np.array_equal(fs2.counts(), flow_counts),
+              f"the {engine} flow stream resumed from its checkpoint differs from phase 6's")
+        check(launches_of(cw, ct, sc).get(key, 0) > 0, f"resumed {engine} flow stream: {key}")
+        print(f"checkpoints: flow stream ({engine}) saved after {len(chunks) // 2} of "
+              f"{len(chunks)} chunks ({os.path.getsize(ckpt)} bytes), resumed = phase 6's "
+              f"counts, launches {launches_of(cw, ct, sc)}")
+    print(f"checkpoints: StreamMatcher saved after {half} of {len(batches)} batches, resumed "
+          f"= the uninterrupted run")
+
+    # -- pcapng ------------------------------------------------------------
+    t0 = time.perf_counter()
+    ng = pcapng_of(pc, tmp / "mega.pcapng")
+    enc_s = time.perf_counter() - t0
+    ingest = {}
+    for label, path in (("classic", cap), ("pcapng", ng)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got_pc = read_pcap(path)
+            times.append(time.perf_counter() - t0)
+        check(got_pc.num_packets == pc.num_packets, f"{label} read {got_pc.num_packets} packets")
+        ingest[label] = statistics.median(times)
+    for flags in ([], ["--stream"], ["--engine", "ac"]):
+        blob, wall = cli_json(cli, ["match", "--pcap", ng, "--patterns", pat_file, "--json",
+                                    *flags])
+        check(blob["counts"] == counts.tolist(), f"match {' '.join(flags)} on pcapng differs")
+        print(f"match {' '.join(flags) or '(one-shot)'} on the pcapng copy: phase 3's counts, "
+              f"{wall:.4f} s [{card}]")
+    print(f"pcapng ({ng.stat().st_size} bytes, encoded in {enc_s:.3f} s): read_pcap median "
+          f"{ingest['pcapng']:.4f} s of 3, classic {ingest['classic']:.4f} s [{card}]")
+
+    # -- match --profile ------------------------------------------------------
+    prof_dir = tmp / "profile"
+    blob, wall = cli_json(cli, ["match", "--pcap", cap, "--patterns", pat_file, "--json",
+                                "--profile", prof_dir])
+    check(blob["counts"] == counts.tolist(), "match --profile counts differ")
+    traces = list(prof_dir.glob("*.json"))
+    check(len(traces) == 1, f"match --profile wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    named = [e for e in events if "window_count" in str(e.get("name", ""))]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(named and kernels, f"the trace names no window_count launch ({len(events)} events)")
+    print(f"match --profile: {traces[0].name}, {len(events)} events, {len(named)} name a "
+          f"window_count launch, {len(kernels)} device kernels; {wall:.4f} s")
+
+    shutil.rmtree(tmp)
+    print(f"phase 12: {time.perf_counter() - t_phase:.3f} s; launches {live_launches}")
+    return live_launches
+
+
 def main() -> int:
     import torch
 
@@ -2998,7 +3351,6 @@ def run(dev) -> int:
                                     rules_file, cap2, batch2, big_counts,
                                     flow_capture(patterns, SEED), flow_counts)
     find_record["max_abs_err"] = max(find_record["max_abs_err"], max_err["window_find"])
-    rules_file.unlink()
     # Rows 1 and 4 build their probe table with the function window_find
     # shares (probe.cuh build_table): their device times beside the earlier
     # ones of PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W).
@@ -3011,6 +3363,12 @@ def run(dev) -> int:
                              counts, per_row, prep, rules, big, cap2, batch2, big_counts,
                              big_rows, prep2, flow_capture(patterns, SEED), flow_counts,
                              compare, max_err)
+
+    # -- 12. the live path and the new inputs -------------------------------------
+    live_launches = live_phase(dev, card, cli, cw, ct, sc, matcher, patterns, pat_file, cap,
+                               counts, rules, big, rules_file, cap2, big_counts,
+                               flow_capture(patterns, SEED), flow_counts, compare)
+    rules_file.unlink()
 
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
     ref = "multithreading_string_matching_tpu/ops/pallas_window.py"
@@ -3063,10 +3421,14 @@ def run(dev) -> int:
         find_record,
         *scan_records,
     ]}
-    # Launches of one streamed pass (phase 9) beside the records' own.
+    # Launches of one streamed pass (phase 9) and of phase 12's live runs
+    # beside the records' own; phase 12's comparisons join max_abs_err.
     for rec in record["kernels"]:
         if rec["name"] in stream_launches:
             rec["stream_launches"] = stream_launches[rec["name"]]
+        if rec["name"] in live_launches:
+            rec["live_launches"] = live_launches[rec["name"]]
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_err.get(rec["name"], 0))
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps(record))

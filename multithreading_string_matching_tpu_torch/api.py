@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from multithreading_string_matching_tpu_torch.io.decode import PayloadBatch, extract_payloads
+from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
 from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
 from multithreading_string_matching_tpu_torch.ops.bucketing import (
     bucket_plan,
@@ -358,6 +359,12 @@ class Matcher:
             else:
                 out["pallas_kernel"] = "cuda-window"
         return out
+
+    @staticmethod
+    def from_file(path: Union[str, os.PathLike], engine: str = "pallas",
+                  device: Union[str, torch.device] = "cuda") -> "Matcher":
+        """A matcher over the patterns of a ``strings.txt``-style file."""
+        return Matcher(load_patterns(path), engine=engine, device=device)
 
     def swap_patterns(self, new_patterns) -> bool:
         """Replace the pattern set in place (the rule-push path).

@@ -5,9 +5,12 @@ Counterpart of ``multithreading_string_matching_tpu/cli.py``::
   python -m multithreading_string_matching_tpu_torch serial <file.pcap> <strings.txt> [udp/tcp]
   python -m multithreading_string_matching_tpu_torch data   <file.pcap> <strings.txt> [threads] [udp/tcp]
   python -m multithreading_string_matching_tpu_torch task   <file.pcap> <strings.txt> [threads] [udp/tcp]
+  python -m multithreading_string_matching_tpu_torch live   <interface> <strings.txt> [threads] [udp/tcp]
+        [--dump-matches OUT.pcap]
   python -m multithreading_string_matching_tpu_torch synth  <out.pcap> <num_packets> [payload_len] [strings.txt]
   python -m multithreading_string_matching_tpu_torch match  --pcap F [--pcap F ...] --patterns F
-        [--mode udp|tcp] [--engine auto|pallas|window|ac|kmp] [--nocase]
+        [--mode udp|tcp] [--engine auto|pallas|window|ac|kmp] [--nocase] [--strict]
+        [--pattern-syntax plain|escaped] [--config FILE] [--profile DIR]
         [--vlan] [--ipv6] [--per-packet] [--staging auto|packed|bucketed]
         [--offsets] [--dump-matches OUT.pcap]
         [--stream [--host-workers N]] [--flows [--reorder] [--stream]]
@@ -21,12 +24,21 @@ every path, with the JAX CLI's remaps: the pattern axis and attribution
 take the window family, the packet axis runs kmp as ac.
 Output is byte-compatible with the reference's report (utils/report.py).
 
-The thread count of ``data`` and ``task`` sizes the HOST thread pool
-(parallel/host.py), the analogue of the reference's ``num_threads``:
+The thread count of ``data``, ``task`` and ``live`` sizes the HOST thread
+pool (parallel/host.py), the analogue of the reference's ``num_threads``:
 ``data`` extracts contiguous packet ranges on a pool, ``task`` threads the
 streamed read/extract stages of the 100-packet task pipeline
-(parallel/pipeline.count_pcap_pipelined).  Counts are identical at any
-thread count.
+(parallel/pipeline.count_pcap_pipelined), ``live`` prefetches tap batches.
+Counts are identical at any thread count.
+
+``live`` is the live program (live_openmp_task.c): an existing capture
+file replays in batches (io/live.FileReplaySource), anything else names an
+interface opened with the kernel's ``udp``/``tcp`` filter
+(io/live.LiveSource; ``MSM_LIVE_PROMISC=0`` leaves promiscuous mode off,
+``MSM_LIVE_RING=1`` takes the TPACKET_V3 ring).  Batches feed
+parallel/stream.StreamMatcher, sized by ``MSM_STREAM_BATCH``/``_WINDOW``/
+``_PACKED``/``_TILE_ROWS``; Ctrl-C drains and reports, SIGHUP reloads the
+rules file.
 
 ``match --stream`` is the bounded-memory serving path
 (parallel/pipeline.count_pcap_streamed): the capture streams in, payloads
@@ -45,13 +57,16 @@ offset in its reassembled stream and the capture packet holding it) and
 ``--dump-matches OUT.pcap`` writes the matching packets (for flows: every
 packet of a hit flow) to a new classic pcap, on every one of these paths;
 repeated ``--pcap`` files scan as one corpus, packets numbered in input
-order.  The ``live`` and ``mesh`` commands and match's distributed option
-are not yet ported (ROADMAP).
+order, classic and pcapng mixed.  ``--config FILE`` loads a MatchConfig
+JSON (utils/config.py) that the flags override, and ``--profile DIR``
+writes a torch.profiler Chrome trace of the run into DIR.  The ``mesh``
+command and match's distributed option are not yet ported (ROADMAP).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import os
 import sys
@@ -70,13 +85,14 @@ def _mode_arg(tokens: List[str], default: str = "udp") -> str:
     raise SystemExit(f"unknown packet type {tokens[0]!r}: expected udp or tcp")
 
 
-def _build(patterns_path: str, engine: str = "pallas", nocase: bool = False):
+def _build(patterns_path: str, engine: str = "pallas", nocase: bool = False,
+           syntax: str = "plain", bucketed: bool = True):
     from multithreading_string_matching_tpu_torch.api import Matcher
     from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
 
     return Matcher(
-        load_patterns(patterns_path), engine=engine, case_insensitive=nocase,
-        device=os.environ.get("MSM_DEVICE", "cuda"),
+        load_patterns(patterns_path, syntax=syntax), engine=engine, case_insensitive=nocase,
+        bucketed=bucketed, device=os.environ.get("MSM_DEVICE", "cuda"),
     )
 
 
@@ -88,10 +104,10 @@ def _exact_counts(total) -> np.ndarray:
     return total.astype(np.int32)
 
 
-def _report(matcher, counts, elapsed) -> None:
+def _report(matcher, counts, elapsed, **kw) -> None:
     from multithreading_string_matching_tpu_torch.utils.report import format_report
 
-    print(format_report(matcher.patterns, counts, elapsed))
+    print(format_report(matcher.patterns, counts, elapsed, **kw))
 
 
 def cmd_serial(argv: List[str]) -> int:
@@ -181,6 +197,112 @@ def cmd_task(argv: List[str]) -> int:
     return 0
 
 
+def cmd_live(argv: List[str]) -> int:
+    """live_openmp_task.c analogue: stream batches of 10 until SIGINT, then
+    drain and report (the sniffed-packet total and the "Oops!" line)."""
+    dump_path = None
+    if "--dump-matches" in argv:
+        i = argv.index("--dump-matches")
+        if i + 1 >= len(argv):
+            print("USAGE: live ... --dump-matches <out.pcap>")
+            return 1
+        dump_path = argv[i + 1]
+        argv = argv[:i] + argv[i + 2 :]
+    if len(argv) < 2:
+        print("USAGE: live <interface> <strings.txt> [threads] [tcp/udp] "
+              "[--dump-matches out.pcap]")
+        return 1
+    import signal
+
+    from multithreading_string_matching_tpu_torch.io.live import FileReplaySource, LiveSource
+    from multithreading_string_matching_tpu_torch.io.pcap import PcapWriter
+    from multithreading_string_matching_tpu_torch.parallel.stream import StreamMatcher
+    from multithreading_string_matching_tpu_torch.utils.config import MatchConfig
+    from multithreading_string_matching_tpu_torch.utils.report import format_report
+
+    threads, rest = _take_threads(argv[2:])
+    mode = _mode_arg(rest)
+    matcher = _build(argv[1])
+    # An existing path replays offline; anything else names an interface,
+    # opened with the reference's capture setup: the kernel "udp"/"tcp"
+    # filter (live_openmp_task.c:127-136) and promiscuous mode (:111-112).
+    # The source comes before the dump file, so a failed open leaves none.
+    source = (
+        FileReplaySource(argv[0])
+        if os.path.exists(argv[0])
+        else LiveSource(
+            argv[0], filter_mode=mode,
+            promiscuous=os.environ.get("MSM_LIVE_PROMISC", "1") != "0",
+            ring=os.environ.get("MSM_LIVE_RING", "0") == "1",
+        )
+    )
+    writer = PcapWriter(dump_path) if dump_path else None
+    # Stream settings come from MSM_STREAM_* (the argv contract has no room).
+    env_cfg = MatchConfig.from_env()
+    stream = StreamMatcher(
+        matcher, batch_size=env_cfg.stream_batch, fixed_len=env_cfg.stream_window,
+        dump_writer=writer,
+        packed={"0": False, "1": True}.get(env_cfg.stream_packed, env_cfg.stream_packed),
+        tile_rows=env_cfg.stream_tile_rows,
+    )
+    # The handler also stops the source: on a quiet interface the capture
+    # loop never yields, so a flag checked between batches would never be
+    # seen and Ctrl-C would lose the report.
+    stream.install_sigint(on_stop=source.stop if hasattr(source, "stop") else None)
+    # SIGHUP reloads the rules file without dropping the tap; the handler
+    # only sets a flag, the swap happens between batches, and a bad file is
+    # reported and ignored.
+    reload_flag = {"hup": False}
+    old_hup = None
+    if hasattr(signal, "SIGHUP"):
+        old_hup = signal.signal(signal.SIGHUP, lambda s, f: reload_flag.__setitem__("hup", True))
+    # Byte-exact start banner (live_openmp_task.c:152-153).
+    print("\nWork in progress...\nPress ctrl+c to stop sniffing procedure")
+    print(f"You can stop the procedure only if at least one {mode} packet has been read")
+    # The thread count sizes a prefetch thread that pulls batches off the tap
+    # while this thread decodes and launches (every CUDA call stays here).
+    if threads:
+        from multithreading_string_matching_tpu_torch.parallel.host import prefetch_iter
+
+        batches = prefetch_iter(iter(source), depth=max(2, threads))
+    else:
+        batches = source
+    try:
+        for batch in batches:
+            if reload_flag["hup"]:
+                reload_flag["hup"] = False
+                try:
+                    new_matcher = _build(argv[1])
+                    prev = stream.reload(new_matcher)
+                except Exception as e:  # keep sniffing under the old rules
+                    print(f"# rules reload failed, keeping old set: {e}", file=sys.stderr)
+                else:
+                    print("# rules reloaded; counts under the previous set:", file=sys.stderr)
+                    print(format_report(matcher.patterns, prev, None), file=sys.stderr)
+                    matcher = new_matcher
+            # bpf_filter: only protocol-matching packets count as sniffed.
+            stream.feed_pcap_slice(batch, mode, bpf_filter=True)
+            if stream.stopped:
+                if hasattr(source, "stop"):
+                    source.stop()
+                break
+    except KeyboardInterrupt:
+        pass
+    finally:
+        stream.uninstall_sigint()
+        if old_hup is not None:
+            signal.signal(signal.SIGHUP, old_hup)
+        stream.flush()  # the pending dump scan and the partial tile, before close
+        if writer is not None:
+            writer.close()
+    _report(matcher, stream.counts(), None, sniffed=stream.packets_seen, oops_line=True)
+    if writer is not None:
+        # stderr keeps stdout byte-compatible with the reference's report.
+        print(f"# wrote {writer.packets_written} matching packets to {dump_path}",
+              file=sys.stderr)
+    return 0
+
+
 def _execution_blob(matcher, sharded: bool = False, attribution: bool = False,
                     actual: Optional[str] = None, shard_axis: Optional[str] = None) -> dict:
     """``matcher.explain()``, corrected for the remaps of the path that ran,
@@ -210,15 +332,22 @@ def cmd_match(argv: List[str]) -> int:
     """One-shot scan with explicit flags, the streamed scan, or the flow
     monitor."""
     p = argparse.ArgumentParser(prog="match")
-    p.add_argument("--pcap", action="append", required=True,
-                   help="capture file; repeatable — multiple captures (e.g. rotated "
-                        "files) scan as one corpus, packets numbered in input order")
-    p.add_argument("--patterns", required=True)
-    p.add_argument("--mode", choices=["udp", "tcp"], default="udp")
+    p.add_argument("--pcap", action="append",
+                   help="capture file (classic pcap or pcapng); repeatable — multiple "
+                        "captures (e.g. rotated files) scan as one corpus, packets "
+                        "numbered in input order")
+    # Not argparse-required or defaulted: a --config file may give them.
+    p.add_argument("--patterns")
+    p.add_argument("--mode", choices=["udp", "tcp"], default=None)
     p.add_argument("--engine", choices=["auto", "pallas", "window", "ac", "kmp"],
-                   default="pallas")
+                   default=None)
+    p.add_argument("--strict", action="store_true",
+                   help="enable the protocol checks the reference omits")
     p.add_argument("--nocase", action="store_true",
                    help="ASCII case-insensitive matching (patterns and payloads folded)")
+    p.add_argument("--pattern-syntax", choices=["plain", "escaped"], default="plain",
+                   help="'escaped' decodes \\xNN / \\\\ per token, allowing binary "
+                        "patterns the reference's fscanf loader cannot express")
     p.add_argument("--vlan", action="store_true", help="skip 802.1Q/802.1ad VLAN tags (up to two)")
     p.add_argument("--ipv6", action="store_true", help="also decode IPv6 frames (ethertype 0x86dd)")
     p.add_argument("--per-packet", action="store_true")
@@ -250,16 +379,73 @@ def cmd_match(argv: List[str]) -> int:
                         "parallel extract workers); identical counts, faster wall clock "
                         "on multi-core hosts")
     p.add_argument("--json", action="store_true")
+    p.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run into DIR")
+    p.add_argument("--config", metavar="FILE",
+                   help="load a MatchConfig JSON (flags override)")
     a = p.parse_args(argv)
-    if a.host_workers < 0:
-        # The JAX package's MatchConfig.validate, word for word.
-        raise ValueError("host_workers must be >= 0")
-    if a.per_packet and not a.json:
-        raise SystemExit("--per-packet produces an [N, P] matrix: use --json")
 
+    from multithreading_string_matching_tpu_torch.utils.config import MatchConfig
+
+    cfg = MatchConfig.load(a.config) if a.config else MatchConfig()
+    # Flags override the config only when given (mode and engine default to
+    # None; the boolean flags can only turn features on, so an unset flag
+    # never clobbers a config file's True).
+    pcap_paths = a.pcap or ([cfg.pcap] if cfg.pcap else [])
+    if not pcap_paths:
+        raise SystemExit("match: --pcap is required (flag or config file)")
+    cfg.pcap = pcap_paths[0]
+    cfg.patterns = a.patterns or cfg.patterns
+    if not cfg.patterns:
+        raise SystemExit("match: --patterns is required (flag or config file)")
+    cfg.mode = a.mode or cfg.mode
+    cfg.engine = a.engine or cfg.engine
+    cfg.strict = a.strict or cfg.strict
+    cfg.per_packet = a.per_packet or cfg.per_packet
+    cfg.flows = a.flows or cfg.flows
+    cfg.reorder = a.reorder or cfg.reorder
+    cfg.profile_dir = a.profile or cfg.profile_dir
+    cfg.host_workers = a.host_workers or cfg.host_workers
+    cfg.validate()
+    if cfg.per_packet and not a.json:
+        raise SystemExit("--per-packet produces an [N, P] matrix: use --json")
+    # The paths below read the merged settings from the namespace.
+    a.pcap, a.patterns, a.mode, a.engine = pcap_paths, cfg.patterns, cfg.mode, cfg.engine
+    a.strict, a.per_packet, a.flows, a.reorder = cfg.strict, cfg.per_packet, cfg.flows, cfg.reorder
+    a.host_workers, a.bucketed, a.n_tile, a.l_quant = (cfg.host_workers, cfg.bucketed,
+                                                        cfg.n_tile, cfg.l_quant)
+    if not cfg.profile_dir:
+        return _run_match(a)
+    # A real with-block: the trace is written on every exit path, errors
+    # included, as the JAX CLI's jax.profiler.trace does.
+    with _profiled(cfg.profile_dir):
+        return _run_match(a)
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: str):
+    """torch.profiler over the block, CPU and (on the card) CUDA activities,
+    its Chrome trace written into ``out_dir`` however the block ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if os.environ.get("MSM_DEVICE", "cuda") == "cuda" and torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield prof
+    finally:
+        prof.export_chrome_trace(os.path.join(out_dir, f"match.{os.getpid()}.pt.trace.json"))
+
+
+def _run_match(a) -> int:
     from multithreading_string_matching_tpu_torch.utils.timing import PhaseTimer
 
-    matcher = _build(a.patterns, engine=a.engine, nocase=a.nocase)
+    matcher = _build(a.patterns, engine=a.engine, nocase=a.nocase, syntax=a.pattern_syntax,
+                     bucketed=a.bucketed)
     timer = PhaseTimer()
     shard_axis = a.shard_axis
     if a.sharded:
@@ -315,7 +501,7 @@ def cmd_match(argv: List[str]) -> int:
     with timer.phase("ingest"):
         pcap = _read_corpus(a.pcap)
     with timer.phase("extract"):
-        batch = extract_payloads(pcap, a.mode, pad_n_to=128, pad_len_to=8,
+        batch = extract_payloads(pcap, a.mode, strict=a.strict, pad_n_to=128, pad_len_to=8,
                                  vlan=a.vlan, ipv6=a.ipv6)
     with timer.phase("scan"):
         offsets = None
@@ -354,10 +540,12 @@ def cmd_match(argv: List[str]) -> int:
             if a.staging != "auto":
                 print(f"# note: --dump-matches uses the per-row kernel; "
                       f"--staging {a.staging} does not apply", file=sys.stderr)
-            per_row = np.asarray(matcher.count_batch(batch, per_packet=True))
+            per_row = np.asarray(matcher.count_batch(batch, per_packet=True, n_tile=a.n_tile,
+                                                     l_quant=a.l_quant))
             counts = _exact_counts(per_row.sum(axis=0, dtype=np.int64))
         else:
-            counts = matcher.count_batch(batch, per_packet=a.per_packet, staging=a.staging)
+            counts = matcher.count_batch(batch, per_packet=a.per_packet, staging=a.staging,
+                                         n_tile=a.n_tile, l_quant=a.l_quant)
             if a.per_packet:
                 per_row = np.asarray(counts)
         if a.offsets and offsets is None:
@@ -664,7 +852,8 @@ def _match_flow_stream(a, matcher, timer) -> int:
                 if reload_flag["hup"]:
                     reload_flag["hup"] = False
                     try:
-                        new_matcher = _build(a.patterns, engine=a.engine, nocase=a.nocase)
+                        new_matcher = _build(a.patterns, engine=a.engine, nocase=a.nocase,
+                                             syntax=a.pattern_syntax, bucketed=a.bucketed)
                         prev = fs.reload(new_matcher)
                     except Exception as e:  # the daemon keeps its old rules
                         print(f"# rules reload failed, keeping old set: {e}", file=sys.stderr)
@@ -732,14 +921,15 @@ def _match_stream(a, matcher, timer, shard_axis: str) -> int:
         if a.dump_matches or a.offsets:
             res = scan_pcap_streamed(
                 matcher, a.pcap, a.mode, dump_path=a.dump_matches, offsets=a.offsets,
-                vlan=a.vlan, ipv6=a.ipv6, stats=stream_stats, sharded=a.sharded,
+                strict=a.strict, vlan=a.vlan, ipv6=a.ipv6, stats=stream_stats, sharded=a.sharded,
                 shard_axis=shard_axis if a.sharded else "packets",
                 host_workers=a.host_workers,
             )
             counts, stream_offsets = res if a.offsets else (res, None)
         else:
             counts = count_pcap_streamed(
-                matcher, a.pcap, a.mode, vlan=a.vlan, ipv6=a.ipv6, engine=a.engine,
+                matcher, a.pcap, a.mode, strict=a.strict, vlan=a.vlan, ipv6=a.ipv6,
+                engine=a.engine,
                 stats=stream_stats, sharded=a.sharded,
                 shard_axis=shard_axis if a.sharded else "packets",
                 host_workers=a.host_workers,
@@ -803,6 +993,7 @@ COMMANDS = {
     "serial": cmd_serial,
     "data": cmd_data,
     "task": cmd_task,
+    "live": cmd_live,
     "match": cmd_match,
     "synth": cmd_synth,
 }

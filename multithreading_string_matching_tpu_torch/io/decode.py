@@ -11,6 +11,8 @@ L - l2 - ihl*4 >= 8; payload at l2 + ihl*4 + 8.
 TCP: ihl*4 >= 20; doff*4 >= 20; payload at l2 + ihl*4 + doff*4.
 ``strict=True`` adds the ethertype/ihl/protocol checks the reference omits;
 ``vlan``/``ipv6`` are opt-in extensions, off by default.
+:func:`bpf_protocol_mask` is the live path's capture filter: which packets
+are the protocol at all, whatever their payload's validity.
 """
 
 from __future__ import annotations
@@ -235,6 +237,73 @@ def decode_headers(
     payload_off = np.where(valid, payload_off, 0)
     payload_len = np.where(valid, payload_len, 0)
     return valid, payload_off, payload_len
+
+
+def bpf_protocol_mask(pcap: PcapFile, mode: str) -> np.ndarray:
+    """The live program's BPF ``"udp"``/``"tcp"`` capture-filter analogue
+    (live_openmp_task.c:127,133): which packets ARE the protocol — the IP
+    protocol / IPv6 next-header field matches — independent of the stricter
+    payload-extraction validity predicate (a truncated UDP packet still
+    passes the BPF filter and counts as "sniffed").
+
+    Untagged frames only, like the reference's filter expressions (tcpdump
+    ``udp`` does not match VLAN-encapsulated traffic without ``vlan`` in
+    the expression)."""
+    if mode not in ("udp", "tcp"):
+        raise ValueError(f"mode must be 'udp' or 'tcp', got {mode!r}")
+    want = IPPROTO_UDP if mode == "udp" else IPPROTO_TCP
+    buf, off, cap = pcap.buf, pcap.offsets, pcap.caplens
+    n = off.shape[0]
+    lt = pcap.linktype
+    if lt == LINKTYPE_SLL:
+        et_base, l2 = 14, 16
+    elif lt in RAW_IP_LINKTYPES:
+        et_base, l2 = None, 0
+    elif lt == LINKTYPE_NULL:
+        et_base, l2 = None, 4
+    else:
+        et_base, l2 = 12, ETH_HLEN
+
+    if et_base is not None:
+        ok_et = cap >= et_base + 2
+        hi = _safe_byte(buf, off + et_base, ok_et).astype(np.int64)
+        lo = _safe_byte(buf, off + et_base + 1, ok_et).astype(np.int64)
+        et = np.where(ok_et, (hi << 8) | lo, -1)
+        is_v4 = et == ETHERTYPE_IPV4
+        is_v6 = et == ETHERTYPE_IPV6
+    elif lt == LINKTYPE_NULL:
+        ok_fam = cap >= 4
+        b = [_safe_byte(buf, off + k, ok_fam).astype(np.int64) for k in range(4)]
+        fam_le = b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24)
+        fam_be = b[3] | (b[2] << 8) | (b[1] << 16) | (b[0] << 24)
+        is_v4 = ok_fam & ((fam_le == 2) | (fam_be == 2))
+        is_v6 = ok_fam & (
+            np.isin(fam_le, (24, 28, 30)) | np.isin(fam_be, (24, 28, 30))
+        )
+    else:  # raw IP
+        ok_v = cap >= 1
+        ver = _safe_byte(buf, off, ok_v).astype(np.int64) >> 4
+        is_v4 = ok_v & (ver == 4)
+        is_v6 = ok_v & (ver == 6)
+
+    ok_proto = cap >= l2 + 10
+    proto = _safe_byte(buf, off + l2 + 9, ok_proto).astype(np.int64)
+    ok_next = cap >= l2 + 7
+    next_hdr = _safe_byte(buf, off + l2 + 6, ok_next).astype(np.int64)
+    # IPv6 fragment (next-header 44): tcpdump's 'udp'/'tcp' — and the cBPF
+    # program LiveSource installs (io/live.py bpf_protocol_program) — also
+    # accept a fragment whose post-fragment-header next-header matches; the
+    # fragment extension header starts right after the fixed 40-byte IPv6
+    # header, so its next-header byte sits at l2 + 40.
+    ok_frag = cap >= l2 + 41
+    frag_next = _safe_byte(buf, off + l2 + 40, ok_frag).astype(np.int64)
+    v6_hit = (next_hdr == want) | (
+        (next_hdr == 44) & ok_frag & (frag_next == want)
+    )
+    return np.asarray(
+        (is_v4 & ok_proto & (proto == want)) | (is_v6 & ok_next & v6_hit),
+        dtype=bool,
+    )
 
 
 def _materialize_padded(

@@ -66,6 +66,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
         i64p, i64p, i64p, i64p, i64p, i64p,
     ]
+    lib.msm_parse_pcapng.restype = ctypes.c_int64
+    lib.msm_parse_pcapng.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+        i64p, ctypes.c_int64, ctypes.c_int64,
+        i64p, i64p, i64p, i64p, i64p, i64p,
+    ]
     lib.msm_decode.restype = None
     lib.msm_decode.argtypes = [
         u8p, ctypes.c_int64, i64p, i64p, i64p, ctypes.c_int64,
@@ -149,6 +155,38 @@ def parse_stream(pend: bytearray, pos: int, swapped: bool, batch_max: int, max_r
         )
     finally:
         del c_buf
+    return (int(count), int(state[0]), int(state[1]), int(state[2]),
+            *[a[:count] for a in arrs])
+
+
+def parse_pcapng(pend, pos: int, swapped: bool, batch_max: int, max_block: int,
+                 tsdivs, spb_snap: int):
+    """Native pcapng packet-block walk over ``pend[pos:]``, the current
+    section only: it stops at any block that is not an EPB, SPB or PB and
+    leaves it to the Python parser.  ``pend`` is a bytearray (the streaming
+    buffer) or bytes (the one-shot reader's file image; the walk only
+    reads).  Returns ``(count, consumed, status, aux, data_off, caplens,
+    origlens, ts_sec, ts_frac)`` as ``msm_parse_pcapng`` reports them."""
+    lib = _need_lib()
+    avail = len(pend) - pos
+    # A valid packet block is at least 16 bytes; a 12-byte one stops the
+    # walk as malformed before any output, so avail // 16 bounds the arrays.
+    cap = max(1, min(int(batch_max), avail // 16 + 1))
+    arrs = [np.empty(cap, dtype=np.int64) for _ in range(5)]
+    state = np.zeros(3, dtype=np.int64)
+    divs = np.ascontiguousarray(tsdivs, dtype=np.int64)
+    if isinstance(pend, bytearray):
+        c_buf = (ctypes.c_uint8 * avail).from_buffer(pend, pos)
+    else:  # read-only source: a zero-copy numpy view carries the pointer
+        c_buf = _u8(np.frombuffer(pend, dtype=np.uint8, offset=pos))
+    try:
+        count = lib.msm_parse_pcapng(
+            c_buf, avail, int(swapped), cap, max_block,
+            _i64(divs), divs.size, spb_snap,
+            *[_i64(a) for a in arrs], _i64(state),
+        )
+    finally:
+        del c_buf  # release the bytearray export (the caller resizes pend)
     return (int(count), int(state[0]), int(state[1]), int(state[2]),
             *[a[:count] for a in arrs])
 

@@ -171,11 +171,19 @@ class KernelLibrary:
             return self._lib
 
     def call(self, entry: str, *args) -> None:
-        """Launch ``entry``; raise with the CUDA error when it is refused."""
-        lib = self.load()
-        rc = getattr(lib, entry)(*args)
+        """Launch ``entry``; raise with the CUDA error when it is refused.
+        Under torch.profiler the launch is a range labelled ``entry``, so a
+        trace names the wrapper beside the device kernel."""
+        import torch
+
+        fn = getattr(self.load(), entry)
+        if torch.autograd._profiler_enabled():
+            with torch.profiler.record_function(entry):
+                rc = fn(*args)
+        else:
+            rc = fn(*args)
         if rc != 0:
             raise RuntimeError(
                 f"{entry} launch failed: CUDA error {rc} "
-                f"({lib.msm_cuda_error_string(rc).decode()})"
+                f"({self.load().msm_cuda_error_string(rc).decode()})"
             )

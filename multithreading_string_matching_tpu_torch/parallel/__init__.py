@@ -1,6 +1,6 @@
 """Streaming and multi-device execution on PyTorch: device meshes (packet
-and pattern axes), the streamed pipelines and their host threads, and the
-flow monitor.  The live path (``StreamMatcher``) is not ported yet."""
+and pattern axes), the streamed pipelines and their host threads, the live
+path's stream matcher (``StreamMatcher``) and the flow monitor."""
 
 from multithreading_string_matching_tpu_torch.parallel.mesh import (
     make_mesh,
@@ -14,6 +14,7 @@ from multithreading_string_matching_tpu_torch.parallel.pattern_shard import (
     make_2d_mesh,
 )
 from multithreading_string_matching_tpu_torch.parallel.pipeline import count_pcap_pipelined
+from multithreading_string_matching_tpu_torch.parallel.stream import StreamMatcher
 from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
 
 __all__ = [
@@ -26,4 +27,5 @@ __all__ = [
     "count_matches_sharded",
     "shard_batch",
     "count_pcap_pipelined",
+    "StreamMatcher",
 ]

@@ -46,7 +46,11 @@ the matcher's device, as in the JAX package.
 :meth:`FlowStreamMatcher.drain_offsets`, bincount to exactly the round's
 counts: ``(flow key, offset in the reassembled stream, unique pattern)``.
 
-Not yet ported (ROADMAP): ``save``/``load`` (``parallel/stream.py``).
+:meth:`FlowStreamMatcher.save` and :meth:`FlowStreamMatcher.load` write and
+read the JAX package's checkpoint file (the flow table, the tails or DFA
+states, the pending and reorder state), so a checkpoint of either package
+resumes in the other; the AC states are numbered alike and are checked on
+load.
 """
 
 from __future__ import annotations
@@ -582,17 +586,198 @@ class FlowStreamMatcher:
         self._drain_device()
         return self._counts.copy()
 
-    def save(self, path) -> str:
-        raise NotImplementedError(
-            "flow-stream checkpoints are not yet ported to the torch package "
-            "(ROADMAP Queue 1 item 5: parallel/stream.py)"
+    def _key_width(self) -> int:
+        from multithreading_string_matching_tpu_torch.io.flows import (
+            V4_KEY_BYTES,
+            V6_KEY_BYTES,
         )
 
-    def load(self, path) -> None:
-        raise NotImplementedError(
-            "flow-stream checkpoints are not yet ported to the torch package "
-            "(ROADMAP Queue 1 item 5: parallel/stream.py)"
+        return V6_KEY_BYTES if self.ipv6 else V4_KEY_BYTES
+
+    def save(self, path) -> str:
+        """Checkpoint EVERYTHING the stream carries — counts, per-flow
+        engine state (DFA ints / window tails), pending bytes (reorder
+        segment lists included), reorder coverage, eviction bookkeeping —
+        so a killed process resumes to counts identical to the
+        uninterrupted run (full-rollback semantics, the flow flavor of
+        StreamMatcher.save).  allow_pickle=False-safe layout: keys as
+        fixed-width uint8 rows, variable-length byte payloads as one blob
+        plus offset/length columns."""
+        self._drain_device()
+        kw = self._key_width()
+
+        def key_rows(ks):
+            out = np.zeros((len(ks), kw), np.uint8)
+            for i, k in enumerate(ks):
+                out[i] = np.frombuffer(k, np.uint8)
+            return out
+
+        from multithreading_string_matching_tpu_torch.parallel.stream import (
+            patterns_npz_fields,
         )
+
+        state_keys = list(self._states)
+        data = {
+            **patterns_npz_fields(self.matcher.patterns),
+            "engine": np.array(self.engine),
+            "mode": np.array(self.mode),
+            "flags": np.array(
+                [int(self.reorder), int(self.ipv6), int(self.vlan),
+                 int(self.collect_offsets)],
+                np.int64,
+            ),
+            "counts": self._counts,
+            "counters": np.array(
+                [self.packets_seen, self.bytes_seen, self._round,
+                 self.flows_evicted, self._pending_bytes], np.int64
+            ),
+            "state_keys": key_rows(state_keys),
+        }
+        if self.engine == "ac":
+            data["state_vals"] = np.array(
+                [self._states[k] for k in state_keys], np.int32
+            )
+        else:
+            H = max(int(self.matcher.window.max_len) - 1, 1)
+            tails = np.zeros((len(state_keys), H), np.uint8)
+            fills = np.zeros(len(state_keys), np.int32)
+            for i, k in enumerate(state_keys):
+                tail, fl = self._states[k]
+                if tail:
+                    tails[i, : len(tail)] = np.frombuffer(tail, np.uint8)
+                fills[i] = fl
+                # invariant: len(tail) == fill (both min(H, total streamed))
+            data["state_tails"] = tails
+            data["state_fills"] = fills
+        # Pending bytes as segments: flat flows contribute ONE segment with
+        # seq 0; reorder flows one per held segment with its real seq.
+        pend_keys = list(self._pending)
+        blob = bytearray()
+        seg_flow, seg_seq, seg_off, seg_len = [], [], [], []
+        for i, k in enumerate(pend_keys):
+            v = self._pending[k]
+            segs = v if isinstance(v, list) else [(0, bytes(v))]
+            for sq, b in segs:
+                seg_flow.append(i)
+                seg_seq.append(sq)
+                seg_off.append(len(blob))
+                seg_len.append(len(b))
+                blob += b
+        data["pend_keys"] = key_rows(pend_keys)
+        data["pend_blob"] = np.frombuffer(bytes(blob), np.uint8)
+        data["seg_flow"] = np.array(seg_flow, np.int64)
+        data["seg_seq"] = np.array(seg_seq, np.int64)
+        data["seg_off"] = np.array(seg_off, np.int64)
+        data["seg_len"] = np.array(seg_len, np.int64)
+        rkeys = list(self._flow_reorder)
+        data["reorder_keys"] = key_rows(rkeys)
+        data["reorder_vals"] = np.array(
+            [self._flow_reorder[k] for k in rkeys], np.int64
+        ).reshape(-1, 2)
+        la = list(self._last_active.items())
+        data["active_keys"] = key_rows([k for k, _ in la])
+        data["active_rounds"] = np.array([r for _, r in la], np.int64)
+        data["closing_keys"] = key_rows(sorted(self._closing))
+        if self.collect_offsets:
+            bk = list(self._flow_base)
+            data["base_keys"] = key_rows(bk)
+            data["base_vals"] = np.array(
+                [self._flow_base[k] for k in bk], np.int64
+            )
+            data["off_keys"] = key_rows([k for k, _, _ in self._offsets])
+            data["off_vals"] = np.array(
+                [(o, u) for _, o, u in self._offsets], np.int64
+            ).reshape(-1, 2)
+        np.savez(path, **data)
+        path = str(path)
+        return path if path.endswith(".npz") else path + ".npz"
+
+    def load(self, path) -> None:
+        """Full rollback to a checkpoint: every accumulator and per-flow
+        state REPLACED (resuming onto a used instance must not
+        double-count).  The checkpoint must match this instance's
+        patterns, engine, mode, and reorder/ipv6 configuration; AC states
+        outside ``[0, dead]`` are refused with ``ValueError`` and leave the
+        stream as it was."""
+        from multithreading_string_matching_tpu_torch.parallel.stream import (
+            checkpoint_path,
+            patterns_from_npz,
+        )
+
+        data = np.load(checkpoint_path(path), allow_pickle=False)
+        if patterns_from_npz(data) != self.matcher.patterns:
+            raise ValueError("checkpoint pattern list does not match matcher")
+        if str(data["engine"]) != self.engine or str(data["mode"]) != self.mode:
+            raise ValueError(
+                "checkpoint engine/mode does not match this stream "
+                f"({data['engine']}/{data['mode']} vs "
+                f"{self.engine}/{self.mode})"
+            )
+        fl = data["flags"].tolist()
+        while len(fl) < 4:  # pre-vlan / pre-offsets checkpoints = off
+            fl.append(0)
+        if fl != [int(self.reorder), int(self.ipv6), int(self.vlan),
+                  int(self.collect_offsets)]:
+            raise ValueError(
+                "checkpoint reorder/ipv6/vlan/offsets configuration does "
+                "not match"
+            )
+        if self.engine == "ac":
+            # The states restart scans: the start-state check of ops/scan,
+            # before anything of this stream changes.
+            check_states(np.asarray(data["state_vals"], np.int64), self.matcher.cac.dead)
+        self._dev_counts = None
+        self._dev_pos = 0
+        self._counts = np.asarray(data["counts"]).astype(np.int64)
+        (self.packets_seen, self.bytes_seen, self._round,
+         self.flows_evicted, self._pending_bytes) = (
+            int(x) for x in data["counters"]
+        )
+        skeys = [bytes(r) for r in data["state_keys"]]
+        if self.engine == "ac":
+            self._states = {
+                k: int(v) for k, v in zip(skeys, data["state_vals"])
+            }
+        else:
+            self._states = {
+                k: (bytes(t[: int(f)]), int(f))
+                for k, t, f in zip(
+                    skeys, data["state_tails"], data["state_fills"]
+                )
+            }
+        blob = data["pend_blob"].tobytes()
+        pkeys = [bytes(r) for r in data["pend_keys"]]
+        self._pending = {}
+        for fi, sq, off, ln in zip(
+            data["seg_flow"], data["seg_seq"], data["seg_off"],
+            data["seg_len"],
+        ):
+            k = pkeys[int(fi)]
+            b = blob[int(off) : int(off) + int(ln)]
+            if self.reorder:
+                self._pending.setdefault(k, []).append((int(sq), b))
+            else:
+                self._pending.setdefault(k, bytearray()).extend(b)
+        self._flow_reorder = {
+            bytes(r): (int(v[0]), int(v[1]))
+            for r, v in zip(data["reorder_keys"], data["reorder_vals"])
+        }
+        self._last_active = {
+            bytes(r): int(v)
+            for r, v in zip(data["active_keys"], data["active_rounds"])
+        }
+        self._closing = {bytes(r) for r in data["closing_keys"]}
+        self._flow_base = {}
+        self._offsets = []
+        if self.collect_offsets:
+            self._flow_base = {
+                bytes(r): int(v)
+                for r, v in zip(data["base_keys"], data["base_vals"])
+            }
+            self._offsets = [
+                (bytes(r), int(o), int(u))
+                for r, (o, u) in zip(data["off_keys"], data["off_vals"])
+            ]
 
     def reload(self, matcher) -> np.ndarray:
         """Swap the pattern set mid-stream (the flow monitor's rule update).

@@ -1,1 +1,1 @@
-"""Phase timers and compat reporting."""
+"""Phase timers, compat reporting and the run configuration (``MatchConfig``)."""

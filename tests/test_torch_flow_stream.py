@@ -292,7 +292,7 @@ def test_reload_equals_jax(captures):
         assert len(fs.counts()) == len(new_pats)
 
 
-def test_unported_options_raise(captures):
+def test_unported_options_raise(captures, tmp_path):
     m = Matcher(PATS, device="cpu")
     pcap_p, pcap_j = read_pcap(captures["v4"]), jax_read(captures["v4"])
     # The AC engine (the JAX default), once refused here, unsharded and with
@@ -317,10 +317,20 @@ def test_unported_options_raise(captures):
         with pytest.raises(ValueError, match="collect_offsets=True needs engine='window'"):
             fs_cls(mm, "tcp", engine="ac", collect_offsets=True)
     assert drained[0] == drained[1] and len(drained[0]) > 0
-    fs = FlowStreamMatcher(m, "tcp", engine="window")
-    for call in (lambda: fs.save("x.npz"), lambda: fs.load("x.npz")):
-        with pytest.raises(NotImplementedError, match="parallel/stream.py"):
-            call()
+    # Checkpoints (once refused here) resume to the uninterrupted counts;
+    # tests/test_torch_checkpoint.py holds them against the JAX package.
+    half = pcap_p.num_packets // 2
+    fs = FlowStreamMatcher(m, "tcp", engine="window", scan_bytes=64)
+    for s in range(0, half, 5):
+        fs.feed_pcap_slice(slice_pcap(pcap_p, s, min(s + 5, half), copy=False))
+    resumed = FlowStreamMatcher(m, "tcp", engine="window", scan_bytes=64)
+    resumed.load(fs.save(tmp_path / "fs"))
+    for s in range(half, pcap_p.num_packets, 5):
+        resumed.feed_pcap_slice(slice_pcap(pcap_p, s, s + 5, copy=False))
+    resumed.flush()
+    whole = _feed(FlowStreamMatcher(m, "tcp", engine="window", scan_bytes=64), pcap_p, 5,
+                  slice_pcap)
+    assert resumed.counts().tolist() == whole.tolist() and whole.sum() > 0
     for kw in (dict(engine="kmp"), dict(mode="icmp"), dict(mesh=object()),
                dict(reorder=True, mode="udp"), dict(fin_evict=True, mode="udp"),
                dict(max_flows=0)):

@@ -173,10 +173,13 @@ def test_standin_pattern_file_shape(monkeypatch):
 
 
 def test_pcapng_is_refused_clearly(tmp_path):
+    """pcapng reads now (tests/test_torch_pcapng.py); a section header with
+    no byte-order magic is refused with the JAX package's ValueError."""
     f = tmp_path / "x.pcapng"
     f.write_bytes(b"\x0a\x0d\x0d\x0a" + b"\x00" * 40)
-    with pytest.raises(NotImplementedError, match="pcapng"):
-        pt_read(f)
+    for read in (pt_read, jax_read):
+        with pytest.raises(ValueError, match="pcapng SHB with invalid byte-order magic"):
+            read(f)
 
 
 @pytest.mark.parametrize("codec", ["gzip", "bz2", "lzma"])

@@ -6,7 +6,7 @@ held to its repair on the CPU:
    fills or wraps such an index instead, a result that is not the
    automaton's: the port refuses on purpose);
 2. the packages' ``__all__`` (top level, ``io``, ``parallel``) are the JAX
-   package's, less what is not ported yet (``StreamMatcher``);
+   package's (``StreamMatcher`` included since the live path's port);
 3. ``PayloadBatch`` has ``num_payloads`` and ``payload(i)``;
 4. ``Matcher.pallas`` is a read-only alias of ``Matcher.kernels``.
 """
@@ -34,7 +34,7 @@ from multithreading_string_matching_tpu_torch.parallel.mesh import count_chunk_s
 torch.set_num_threads(1)
 
 PATS = [b"ab", b"abc", b"bca", b"cab"]
-NOT_PORTED = {"StreamMatcher"}
+NOT_PORTED = set()
 
 
 def _lanes(n=6, L=32):

@@ -1,5 +1,7 @@
-"""The streamed packet paths on the card: the pinned tile stager's ring and
-the packed-tile counter against the plain version.
+"""The streamed packet paths on the card: the pinned tile stager's ring,
+the packed-tile counter and the live path's ``StreamMatcher`` (packed,
+unpacked and long-payload feeds, with their launch counts) against the
+plain version.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without one;
 the card is looked for inside a fixture.  This file imports no jax, so it
@@ -17,12 +19,16 @@ import pytest
 import torch
 
 from multithreading_string_matching_tpu_torch.api import Matcher
+from multithreading_string_matching_tpu_torch.io.decode import bpf_protocol_mask
+from multithreading_string_matching_tpu_torch.io.live import FileReplaySource
 from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
 from multithreading_string_matching_tpu_torch.io.synth import synth_udp_pcap
 from multithreading_string_matching_tpu_torch.ops import cuda_table as ct
 from multithreading_string_matching_tpu_torch.ops import cuda_window as cw
+from multithreading_string_matching_tpu_torch.ops import scan as sc
 from multithreading_string_matching_tpu_torch.parallel import pipeline as pp
 from multithreading_string_matching_tpu_torch.parallel.stager import TileStager
+from multithreading_string_matching_tpu_torch.parallel.stream import StreamMatcher
 
 pytestmark = pytest.mark.gpu
 
@@ -47,7 +53,7 @@ def cap(tmp_path_factory):
 
 
 def _reset():
-    for m in (cw, ct):
+    for m in (cw, ct, sc):
         for k in m.LAUNCHES:
             m.LAUNCHES[k] = 0
 
@@ -130,3 +136,86 @@ def test_stager_never_overwrites_a_slot_in_use(dev):
     hp[:] = 3
     hf[:] = 1
     assert int(stager.dispatch(slow_sum, rows=5)) == 5 * 512 * 3 + 5
+
+
+@pytest.fixture(scope="module")
+def long_cap(tmp_path_factory):
+    path = tmp_path_factory.mktemp("stream_gpu") / "long.pcap"
+    synth_udp_pcap(path, 200, payload_len=6000, payload_len_jitter=1500, patterns=STANDIN,
+                   plant_rate=1.0, seed=10)
+    return path
+
+
+def _live(m, path, **kw):
+    s = StreamMatcher(m, **kw)
+    for b in FileReplaySource(path):
+        s.feed_pcap_slice(b, "udp", bpf_filter=True)
+    return s
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tile_rows=64)], ids=["default", "small-tiles"])
+def test_stream_matcher_packed_equals_plain(dev, cap, kw):
+    """NUL-free set: one window_count_totals launch a full tile (and one for
+    the partial tile at counts()), not one a 10-packet batch."""
+    _reset()
+    s = _live(Matcher(STANDIN, device=dev), cap, **kw)
+    got = s.counts()
+    assert got.tolist() == _live(Matcher(STANDIN, device="cpu"), cap, **kw).counts().tolist()
+    assert got.sum() > 0 and s.tiles_dispatched >= 1
+    assert cw.LAUNCHES["window_count_totals"] == s.tiles_dispatched < 200
+    assert not any(ct.LAUNCHES.values()) and not any(sc.LAUNCHES.values())
+
+
+def test_stream_matcher_unpacked_and_nul_equal_plain(dev, cap, monkeypatch):
+    """Unpacked batches: one kernel launch a batch; the table route's class
+    kernels for a forced table set; ac_scan for engine='ac'."""
+    nul = STANDIN + [b"a\x00b"]
+    # Batches of 10 packets with at least one UDP packet (the capture filter).
+    batches = sum(1 for b in FileReplaySource(cap) if bpf_protocol_mask(b, "udp").any())
+    for pats, kw, key in ((nul, {}, "window_count_totals"),
+                          (STANDIN, dict(packed=False), "window_count_totals"),
+                          (STANDIN, dict(packed=False, engine="ac"), "ac_scan")):
+        _reset()
+        s = _live(Matcher(pats, device=dev), cap, **kw)
+        got = s.counts()
+        assert got.tolist() == _live(Matcher(pats, device="cpu"), cap, **kw).counts().tolist()
+        assert got.tolist() == _plain(pats, cap, dev).tolist()
+        launches = {**cw.LAUNCHES, **sc.LAUNCHES}
+        assert launches[key] == batches and s.tiles_dispatched == 0
+    monkeypatch.setenv("MSM_PALLAS_TABLE", "1")
+    _reset()
+    s = _live(Matcher(STANDIN, device=dev), cap, packed=False)
+    assert s.counts().tolist() == _plain(STANDIN, cap, dev).tolist()
+    assert ct.LAUNCHES["filter_count_totals"] >= batches and not any(cw.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("engine,key", [("window", "window_count_halo"), ("ac", "ac_scan")])
+def test_stream_matcher_long_payloads_equal_plain(dev, long_cap, engine, key):
+    """Payloads past fixed_len: the halo kernel (window) or ac_scan with
+    carried states (ac), one launch a 2,048-byte chunk of each batch."""
+    _reset()
+    s = _live(Matcher(STANDIN, device=dev), long_cap, packed=False, engine=engine)
+    got = s.counts()
+    launches = {**cw.LAUNCHES, **sc.LAUNCHES}  # before the one-shot counts below launch
+    assert got.tolist() == _plain(STANDIN, long_cap, dev).tolist() and got.sum() > 0
+    assert got.tolist() == Matcher(STANDIN, device=dev).count_pcap(long_cap).tolist()
+    assert launches[key] >= 20 * 3  # 20 batches of 10, at least 3 chunks each
+    others = {k: v for k, v in launches.items() if k != key and v}
+    assert not others, others
+
+
+def test_stream_matcher_dump_uses_row_kernels(dev, cap, tmp_path):
+    from multithreading_string_matching_tpu_torch.io.pcap import PcapWriter
+
+    outs = []
+    for d in (dev, "cpu"):
+        _reset()
+        w = PcapWriter(tmp_path / f"{getattr(d, 'type', d)}.pcap")
+        s = _live(Matcher(STANDIN, device=d), cap, dump_writer=w)
+        s.flush()
+        w.close()
+        outs.append((s.counts().tolist(), w.packets_written))
+        if d is dev:
+            assert cw.LAUNCHES["window_count_rows"] >= 1
+    assert outs[0] == outs[1] and outs[0][1] > 0
+    assert (tmp_path / "cuda.pcap").read_bytes() == (tmp_path / "cpu.pcap").read_bytes()
