@@ -201,6 +201,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the classic ones; ``match --profile`` writing a trace that names the
    window_count launches.  Each kernel is held against its plain version at
    this path's shapes; the records carry the launches as ``live_launches``.
+13. The multi-process path (parallel/distributed.py): ranks are processes
+   of this script's host, two on the one card, joined by a gloo group
+   through ``MSM_COORDINATOR`` on a free port; any rank's nonzero exit or
+   traceback fails the run.  ``mesh`` on phase 3's capture with one
+   process and with two ranks, in turns (3 runs each): rank 0 prints phase
+   3's counts, rank 1 nothing; its wall and rank 0's ``elapsed_max_s``
+   beside each.  ``mesh`` with two ranks on phase 5's capture and rules
+   gives phase 5's counts; ``match --stream --distributed --json`` with two
+   ranks gives the single process's counts and stats.  This script with
+   ``--distributed-rank`` runs ``count_pcap_distributed`` (``pallas``,
+   ``ac``, the 3,072 rules) and ``count_pcap_streamed_distributed`` in each
+   rank with the launch counters reset just before each, and the device's
+   busy share of one one-shot count (torch.profiler).  ``window_count_totals``
+   equals its plain version at rank 0's shard shape (the first half of
+   phase 3's rows at the ranks' common width), ``ac_scan`` and the filter
+   class kernels on its first 1,024 rows; the records carry the ranks'
+   launches as ``distributed_launches``.
 
 The line before the last is one JSON object with a record per kernel, each
 with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -229,6 +246,7 @@ import os
 import pathlib
 import re
 import shutil
+import socket
 import statistics
 import struct
 import subprocess
@@ -1440,6 +1458,17 @@ def mxu_phase(dev, card: str, mx, matcher, prep, std_counts, head_p, head_l) -> 
             "bound_share": rec_bound["bound_ms"] / ms}
 
 
+def parse_report(text: str):
+    """``({pattern: count}, elapsed seconds)`` of one printed report."""
+    lines = text.splitlines()
+    check(len(lines) > 2 and lines[-1].startswith("Elapsed time = "), f"no report: {text[-500:]!r}")
+    reported = {}
+    for line in lines[1:-1]:
+        name, _, rest = line.rpartition(": ")
+        reported.setdefault(name, int(rest.split()[0]))
+    return reported, float(lines[-1].split()[3])
+
+
 def report_of(cli, argv):
     """``({pattern: count}, exit code, wall seconds)`` of one command whose
     stdout is the reference's report (nonzero counts, first line a header,
@@ -1449,11 +1478,7 @@ def report_of(cli, argv):
     with contextlib.redirect_stdout(out):
         rc = cli.main([str(a) for a in argv])
     wall = time.perf_counter() - t0
-    reported = {}
-    for line in out.getvalue().splitlines()[1:-1]:
-        name, _, rest = line.rpartition(": ")
-        reported.setdefault(name, int(rest.split()[0]))
-    return reported, rc, wall
+    return parse_report(out.getvalue())[0], rc, wall
 
 
 def nonzero(patterns, counts) -> dict:
@@ -2907,12 +2932,231 @@ def live_phase(dev, card: str, cli, cw, ct, sc, matcher, patterns, pat_file, cap
     return live_launches
 
 
+# -- 13. the multi-process path ---------------------------------------------------
+
+PKG = "multithreading_string_matching_tpu_torch"
+RANKS = 2
+RANK_TIMEOUT_S = 300
+MESH_RUNS = 3
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argv, n: int):
+    """``([(stdout, stderr)] by rank, wall seconds)`` of ``n`` processes of
+    ``python argv`` on this card, joined through ``MSM_COORDINATOR`` on a
+    fresh port (one process without a coordinator when ``n`` is 1).  A
+    rank's nonzero exit or traceback fails the run; no rank outlives it."""
+    root = pathlib.Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MSM_COORDINATOR", "MSM_NUM_PROCESSES", "MSM_PROCESS_ID")}
+    env.update(MSM_DEVICE="cuda", PYTHONPATH=str(root))
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, *map(str, argv)], cwd=root, text=True,
+        env={**env, **({"MSM_COORDINATOR": coord, "MSM_NUM_PROCESSES": str(n),
+                        "MSM_PROCESS_ID": str(r)} if n > 1 else {})},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, (_, se)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and "Traceback" not in se,
+              f"rank {r} of {n} ({' '.join(map(str, argv))}) exited {p.returncode}: {se[-3000:]}")
+    return outs, wall
+
+
+def distributed_rank(out_pattern, cap, pat_file, cap2, rules_file) -> int:
+    """One rank of phase 13's rank script (``chip_smoke.py --distributed-rank
+    ...``): the distributed entry points on this card with the launch
+    counters reset just before each, and the device's busy share of one
+    one-shot count, written to ``out_pattern % rank``."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from multithreading_string_matching_tpu_torch.api import Matcher
+    from multithreading_string_matching_tpu_torch.io.patterns import load_patterns
+    from multithreading_string_matching_tpu_torch.ops import cuda_table as ct
+    from multithreading_string_matching_tpu_torch.ops import cuda_window as cw
+    from multithreading_string_matching_tpu_torch.ops import scan as sc
+    from multithreading_string_matching_tpu_torch.parallel.distributed import (
+        count_pcap_distributed,
+        count_pcap_streamed_distributed,
+        initialize_from_env,
+    )
+
+    check(initialize_from_env() and dist.get_world_size() == RANKS, "the rank joined no group")
+    rank = dist.get_rank()
+    dev = torch.device("cuda")
+    matcher = Matcher(load_patterns(pat_file), device=dev)
+    big = Matcher(load_patterns(rules_file), device=dev)
+    out = {}
+    stats: dict = {}
+    for name, fn in (
+        ("pallas", lambda: count_pcap_distributed(matcher, cap, engine="pallas")),
+        ("ac", lambda: count_pcap_distributed(matcher, cap, engine="ac")),
+        ("streamed", lambda: count_pcap_streamed_distributed(matcher, cap, stats=stats)),
+        ("rules", lambda: count_pcap_distributed(big, cap2, engine="pallas")),
+    ):
+        torch.cuda.synchronize()
+        reset_launches(cw, ct, sc)
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+        out[name] = {"counts": res.counts.tolist(), "local_packets": res.local_packets,
+                     "local_payload_bytes": res.local_payload_bytes,
+                     "elapsed_max_s": res.elapsed_max_s, "wall_s": wall,
+                     "launches": launches_of(cw, ct, sc)}
+    out["streamed"]["stats"] = stats
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        count_pcap_distributed(matcher, cap, engine="pallas")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["busy"] = {**device_busy(prof), "wall_ms": wall * 1e3}
+    pathlib.Path(out_pattern % rank).write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def distributed_phase(dev, card: str, cli, cw, ct, sc, matcher, patterns, pat_file, cap, counts,
+                      big, rules, rules_file, cap2, big_counts, compare) -> dict:
+    """Phase 13; returns the launches of the rank script's runs per kernel,
+    summed over its ranks."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch.io.decode import extract_payloads
+    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap, slice_pcap
+    from multithreading_string_matching_tpu_torch.ops.table import filter_count
+    from multithreading_string_matching_tpu_torch.ops.window import window_count
+
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="msm_torch_dist_"))
+
+    # -- mesh: one process and two ranks, in turns ----------------------------
+    walls = {1: [], RANKS: []}
+    elapsed = {1: [], RANKS: []}
+    for _ in range(MESH_RUNS):
+        for n in (1, RANKS):
+            outs, wall = run_ranks(["-m", PKG, "mesh", cap, pat_file, "udp"], n)
+            reported, el = parse_report(outs[0][0])
+            check(reported == nonzero(patterns, counts),
+                  f"mesh with {n} process(es): counts differ from phase 3's")
+            check(all(so == "" for so, _ in outs[1:]), "a rank other than 0 printed")
+            walls[n].append(wall)
+            elapsed[n].append(el)
+    for n in (1, RANKS):
+        print(f"mesh, {n} process(es), phase 3's capture: wall median "
+              f"{statistics.median(walls[n]):.4f} s of {MESH_RUNS} "
+              f"({', '.join(f'{w:.4f}' for w in walls[n])}), rank 0's elapsed_max_s "
+              f"{', '.join(f'{e:.4f}' for e in elapsed[n])} [{card}]")
+    outs, wall = run_ranks(["-m", PKG, "mesh", cap2, rules_file, "udp"], RANKS)
+    check(parse_report(outs[0][0])[0] == nonzero(rules, big_counts) and outs[1][0] == "",
+          "mesh with 2 ranks on the 3,072 rules: counts differ from phase 5's")
+    print(f"mesh, {RANKS} ranks, 3,072 rules: phase 5's counts, wall {wall:.4f} s, elapsed_max_s "
+          f"{parse_report(outs[0][0])[1]:.4f} [{card}]")
+
+    # -- match --stream --distributed ------------------------------------------
+    match = ["match", "--pcap", cap, "--patterns", pat_file, "--stream", "--json"]
+    single, single_s = cli_json(cli, match)
+    outs, wall = run_ranks(["-m", PKG, *match, "--distributed"], RANKS)
+    blob = json.loads(outs[0][0].splitlines()[-1])
+    check(outs[1][0] == "", "match --distributed: rank 1 printed")
+    check(single["counts"] == counts.tolist(), "match --stream differs from phase 3's counts")
+    for key in ("counts", "packets", "valid_payloads", "payload_bytes"):
+        check(blob[key] == single[key], f"match --stream --distributed: {key} differs")
+    print(f"match --stream --distributed --json, {RANKS} ranks: the single process's counts and "
+          f"stats, wall {wall:.4f} s (one process in process: {single_s:.4f} s) [{card}]")
+
+    # -- the rank script: the entry points, launches counted per rank ------------
+    outs, wall = run_ranks([pathlib.Path(__file__).resolve(), "--distributed-rank",
+                            tmp / "rank%d.json", cap, pat_file, cap2, rules_file], RANKS)
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(RANKS)]
+    n_pkts = read_pcap(cap).num_packets
+    share = -(-n_pkts // RANKS)
+    launches: dict = {}
+    for r, got in enumerate(ranks):
+        for name in ("pallas", "ac", "streamed"):
+            check(got[name]["counts"] == counts.tolist(), f"rank {r} {name}: not phase 3's counts")
+        check(got["rules"]["counts"] == big_counts.tolist(), f"rank {r} rules: not phase 5's counts")
+        check(got["pallas"]["local_packets"] == min(n_pkts, (r + 1) * share) - r * share,
+              f"rank {r} counted {got['pallas']['local_packets']} packets")
+        check(got["streamed"]["stats"]["packets"] == n_pkts, "streamed stats are not the capture's")
+        expect = {"pallas": {"window_count_totals"}, "ac": {"ac_scan"},
+                  "streamed": {"window_count_totals"}, "rules": {"filter_count_totals"}}
+        for name, kernels in expect.items():
+            got_l = got[name]["launches"]
+            check(set(got_l) == kernels and all(v > 0 for v in got_l.values()),
+                  f"rank {r} {name} launched {got_l}, expected {kernels}")
+            for k, v in got_l.items():
+                launches[k] = launches.get(k, 0) + v
+        print(f"rank {r}: " + "; ".join(
+            f"{name} {got[name]['local_packets']} packets, {got[name]['wall_s']:.4f} s, "
+            f"elapsed_max_s {got[name]['elapsed_max_s']:.4f}, launches {got[name]['launches']}"
+            for name in ("pallas", "ac", "streamed", "rules")) + f" [{card}]")
+        busy = got["busy"]
+        check(busy.get("events", 0) > 0, f"rank {r}: the profiled count shows no device time")
+        print(f"rank {r}, one profiled count_pcap_distributed (pallas): device busy "
+              f"{busy['busy_ms']:.4f} ms (kernels {busy['kernel_ms']:.4f}, copies "
+              f"{busy['copy_ms']:.4f}) of {busy['wall_ms']:.4f} ms: busy share "
+              f"{busy['busy_ms'] / busy['wall_ms']:.6f} [{card}]")
+    print(f"rank script, {RANKS} ranks: wall {wall:.4f} s; launches over both ranks {launches}")
+
+    # -- the kernels against their plain versions at a rank's shard shape --------
+    def rank0_shard(capture):
+        """Rank 0's rows of ``capture`` padded to the ranks' common width."""
+        pc = read_pcap(capture)
+        half = -(-pc.num_packets // RANKS)
+        parts = [extract_payloads(slice_pcap(pc, r * half, (r + 1) * half), "udp",
+                                  keep_invalid=True) for r in range(RANKS)]
+        width = -(-max(b.payloads.shape[1] for b in parts) // 128) * 128
+        p = np.pad(parts[0].payloads, ((0, half - parts[0].payloads.shape[0]),
+                                       (0, width - parts[0].payloads.shape[1])))
+        ln = np.pad(parts[0].lengths, (0, half - parts[0].lengths.shape[0]))
+        return torch.from_numpy(p).to(dev), torch.from_numpy(ln.astype(np.int32)).to(dev)
+
+    p0, l0 = rank0_shard(cap)
+    words, masks, lens = matcher.window.tables(dev)
+    compare("window_count_totals", cw.window_count_totals(p0, l0, words, masks, lens),
+            window_count(words, masks, lens, p0, l0), f"rank 0's shard {list(p0.shape)}")
+    head_p, head_l = p0[:1024].contiguous(), l0[:1024].contiguous()
+    zeros = torch.zeros(head_p.shape[0], dtype=torch.int32, device=dev)
+    compare("ac_scan", sc.ac_scan(matcher.cac, head_p, head_l, zeros)[0],
+            sc.ac_scan_plain(matcher.cac, head_p, head_l, zeros)[0],
+            f"rank 0's shard, first 1,024 rows x {p0.shape[1]}")
+    q0, m0 = rank0_shard(cap2)
+    q0, m0 = q0[:1024].contiguous(), m0[:1024].contiguous()
+    for c, tabs in zip(big.kernels.classes, big.kernels._tables):
+        compare("filter_count_totals", ct.filter_count_totals(q0, m0, *tabs, c.K),
+                filter_count(*tabs, q0, m0, c.K),
+                f"rank 0's 3,072-rule shard, first 1,024 rows, class K={c.K}")
+    print(f"kernels = plain at rank 0's shard shape: window_count_totals {list(p0.shape)}; "
+          f"ac_scan and {len(big.kernels.classes)} filter classes on its first 1,024 rows")
+    shutil.rmtree(tmp)
+    print(f"phase 13: {time.perf_counter() - t_phase:.3f} s; launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--distributed-rank"]:
+        return distributed_rank(*sys.argv[2:])
     return run(torch.device("cuda"))
 
 
@@ -3368,6 +3612,11 @@ def run(dev) -> int:
     live_launches = live_phase(dev, card, cli, cw, ct, sc, matcher, patterns, pat_file, cap,
                                counts, rules, big, rules_file, cap2, big_counts,
                                flow_capture(patterns, SEED), flow_counts, compare)
+
+    # -- 13. the multi-process path -------------------------------------------------
+    distributed_launches = distributed_phase(dev, card, cli, cw, ct, sc, matcher, patterns,
+                                             pat_file, cap, counts, big, rules, rules_file, cap2,
+                                             big_counts, compare)
     rules_file.unlink()
 
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
@@ -3421,13 +3670,16 @@ def run(dev) -> int:
         find_record,
         *scan_records,
     ]}
-    # Launches of one streamed pass (phase 9) and of phase 12's live runs
-    # beside the records' own; phase 12's comparisons join max_abs_err.
+    # Launches of one streamed pass (phase 9), of phase 12's live runs and of
+    # phase 13's ranks beside the records' own; later phases' comparisons
+    # join max_abs_err.
     for rec in record["kernels"]:
         if rec["name"] in stream_launches:
             rec["stream_launches"] = stream_launches[rec["name"]]
         if rec["name"] in live_launches:
             rec["live_launches"] = live_launches[rec["name"]]
+        if rec["name"] in distributed_launches:
+            rec["distributed_launches"] = distributed_launches[rec["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"], max_err.get(rec["name"], 0))
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s")
     print(card)

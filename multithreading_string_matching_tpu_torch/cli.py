@@ -7,13 +7,14 @@ Counterpart of ``multithreading_string_matching_tpu/cli.py``::
   python -m multithreading_string_matching_tpu_torch task   <file.pcap> <strings.txt> [threads] [udp/tcp]
   python -m multithreading_string_matching_tpu_torch live   <interface> <strings.txt> [threads] [udp/tcp]
         [--dump-matches OUT.pcap]
+  python -m multithreading_string_matching_tpu_torch mesh   <file.pcap> <strings.txt> [udp/tcp]   (alias: mpi)
   python -m multithreading_string_matching_tpu_torch synth  <out.pcap> <num_packets> [payload_len] [strings.txt]
   python -m multithreading_string_matching_tpu_torch match  --pcap F [--pcap F ...] --patterns F
         [--mode udp|tcp] [--engine auto|pallas|window|ac|kmp] [--nocase] [--strict]
         [--pattern-syntax plain|escaped] [--config FILE] [--profile DIR]
         [--vlan] [--ipv6] [--per-packet] [--staging auto|packed|bucketed]
         [--offsets] [--dump-matches OUT.pcap]
-        [--stream [--host-workers N]] [--flows [--reorder] [--stream]]
+        [--stream [--host-workers N] [--distributed]] [--flows [--reorder] [--stream]]
         [--sharded [--shard-axis auto|packets|patterns|both]] [--json]
 
 ``MSM_DEVICE=cpu|cuda`` (default ``cuda``) picks the device, as
@@ -59,8 +60,14 @@ packet of a hit flow) to a new classic pcap, on every one of these paths;
 repeated ``--pcap`` files scan as one corpus, packets numbered in input
 order, classic and pcapng mixed.  ``--config FILE`` loads a MatchConfig
 JSON (utils/config.py) that the flags override, and ``--profile DIR``
-writes a torch.profiler Chrome trace of the run into DIR.  The ``mesh``
-command and match's distributed option are not yet ported (ROADMAP).
+writes a torch.profiler Chrome trace of the run into DIR.
+
+``mesh`` (alias ``mpi``) is the MPI program (mpi_dumping.c) and ``match
+--stream --distributed`` its streamed form (parallel/distributed.py): with
+``MSM_COORDINATOR`` (host:port of rank 0), ``MSM_NUM_PROCESSES`` and
+``MSM_PROCESS_ID`` set, each process joins a gloo process group, counts its
+share of the packets on its own devices, and the counts merge in one SUM;
+rank 0 prints.  Without them the command runs as one process.
 """
 
 from __future__ import annotations
@@ -194,6 +201,54 @@ def cmd_task(argv: List[str]) -> int:
     counts = count_pcap_pipelined(matcher, argv[0], mode, host_workers=threads)
     elapsed = time.perf_counter() - start
     _report(matcher, counts, elapsed)
+    return 0
+
+
+@contextlib.contextmanager
+def _process_group():
+    """Join the process group of ``MSM_COORDINATOR`` etc. (when set) for the
+    block, and end the group this command started however the block ends.
+    Yields this process's rank (0 without a group)."""
+    import torch.distributed as dist
+
+    from multithreading_string_matching_tpu_torch.parallel.distributed import (
+        _procs_and_rank,
+        initialize_from_env,
+    )
+
+    started = not dist.is_initialized()
+    initialize_from_env()
+    try:
+        yield _procs_and_rank()[1]
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def cmd_mesh(argv: List[str]) -> int:
+    """mpi_dumping.c analogue: each process counts its share of the packets
+    on its own devices, the counts merge in one SUM and rank 0 prints
+    (mpi_dumping.c:208-215).  Without ``MSM_COORDINATOR`` one process counts
+    the whole capture over a mesh of every device of ``MSM_DEVICE``'s type."""
+    if len(argv) < 2:
+        print("USAGE: mesh <file.pcap> <strings.txt> [tcp/udp]")
+        return 1
+    from multithreading_string_matching_tpu_torch.parallel.distributed import (
+        count_pcap_distributed,
+    )
+
+    with _process_group() as rank:
+        mode = _mode_arg(argv[2:])
+        matcher = _build(argv[1])
+        # The matcher's resolved engine on every shard: the kernels
+        # (pallas) unless the set resolves to ac or kmp.
+        eng = matcher._resolve_engine(None)
+        res = count_pcap_distributed(
+            matcher, argv[0], mode,
+            engine=eng if eng in ("pallas", "window", "ac") else "window",
+        )
+    if rank == 0:
+        _report(matcher, res.counts, res.elapsed_max_s)
     return 0
 
 
@@ -373,7 +428,10 @@ def cmd_match(argv: List[str]) -> int:
     p.add_argument("--dump-matches", metavar="OUT.pcap",
                    help="write the packets that contained at least one match to a new "
                         "classic pcap (original bytes and timestamps preserved)")
-    p.add_argument("--distributed", action="store_true", help="not yet ported")
+    p.add_argument("--distributed", action="store_true",
+                   help="with --stream: multi-process streamed counting "
+                        "(count_pcap_streamed_distributed; set MSM_COORDINATOR etc. "
+                        "on every process — a single process runs locally)")
     p.add_argument("--host-workers", type=int, default=0, metavar="N",
                    help="with --stream: thread the host stages (prefetched ingest + N "
                         "parallel extract workers); identical counts, faster wall clock "
@@ -486,9 +544,6 @@ def _run_match(a) -> int:
             raise SystemExit("--distributed streaming is counts-only (per-host tiles, "
                              "one end-of-run merge); drop --sharded/--offsets/"
                              "--dump-matches")
-    if a.distributed:
-        raise NotImplementedError(
-            "match --distributed is not yet ported to the torch package (ROADMAP)")
     if a.flows and a.stream:
         return _match_flow_stream(a, matcher, timer)
     if a.flows:
@@ -909,7 +964,9 @@ def _match_stream(a, matcher, timer, shard_axis: str) -> int:
     """``--stream``: the bounded-memory packed-tile scan over every
     ``--pcap`` in turn (parallel/pipeline.count_pcap_streamed); with
     ``--offsets`` or ``--dump-matches`` the per-row streamed scan
-    (parallel/pipeline.scan_pcap_streamed)."""
+    (parallel/pipeline.scan_pcap_streamed); with ``--distributed`` each
+    process's share of the chunks, merged at the end
+    (parallel/distributed.count_pcap_streamed_distributed), rank 0 printing."""
     from multithreading_string_matching_tpu_torch.parallel.pipeline import (
         count_pcap_streamed,
         scan_pcap_streamed,
@@ -918,7 +975,19 @@ def _match_stream(a, matcher, timer, shard_axis: str) -> int:
     stream_stats: dict = {}
     stream_offsets = None
     with timer.phase("scan"):
-        if a.dump_matches or a.offsets:
+        if a.distributed:
+            from multithreading_string_matching_tpu_torch.parallel.distributed import (
+                count_pcap_streamed_distributed,
+            )
+
+            with _process_group() as rank:
+                counts = count_pcap_streamed_distributed(
+                    matcher, a.pcap, a.mode, strict=a.strict, vlan=a.vlan, ipv6=a.ipv6,
+                    engine=a.engine, stats=stream_stats, host_workers=a.host_workers,
+                ).counts
+            if rank != 0:
+                return 0  # rank 0 prints, as mesh does
+        elif a.dump_matches or a.offsets:
             res = scan_pcap_streamed(
                 matcher, a.pcap, a.mode, dump_path=a.dump_matches, offsets=a.offsets,
                 strict=a.strict, vlan=a.vlan, ipv6=a.ipv6, stats=stream_stats, sharded=a.sharded,
@@ -994,6 +1063,8 @@ COMMANDS = {
     "data": cmd_data,
     "task": cmd_task,
     "live": cmd_live,
+    "mesh": cmd_mesh,
+    "mpi": cmd_mesh,  # alias: the MPI program's role
     "match": cmd_match,
     "synth": cmd_synth,
 }
@@ -1014,7 +1085,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         # Reference behavior: perror + exit(1) on fopen/pcap_open failure.
         print(f"error opening file: {e.filename or e}", file=sys.stderr)
         return 1
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
 

@@ -110,7 +110,7 @@ def test_package_never_imports_jax(capture):
         "from multithreading_string_matching_tpu_torch import cli\n"
         "from multithreading_string_matching_tpu_torch.ops import cuda_window, window, bucketing\n"
         "from multithreading_string_matching_tpu_torch.io import flows\n"
-        "from multithreading_string_matching_tpu_torch.parallel import flow_stream, mesh\n"
+        "from multithreading_string_matching_tpu_torch.parallel import distributed, flow_stream, mesh\n"
         "from multithreading_string_matching_tpu_torch.parallel import pattern_shard as ps\n"
         "from multithreading_string_matching_tpu_torch.ops import mxu\n"
         "from multithreading_string_matching_tpu_torch.tools import mxu_match\n"
@@ -123,6 +123,8 @@ def test_package_never_imports_jax(capture):
         "                                     ps.make_2d_mesh(1, 2, ['cpu'] * 2))\n"
         "assert c.tolist() == [1, 1, 0], c\n"
         "assert mesh.count_rows_summary(pm, [[97, 98]], [2], mesh.make_mesh(['cpu']))[0][0] == 1\n"
+        f"r = distributed.count_pcap_distributed(pm, {str(capture)!r}, engine='ac')\n"
+        f"assert r.counts.tolist() == pm.count_pcap({str(capture)!r}).tolist()\n"
         "fs = flow_stream.FlowStreamMatcher(m.Matcher([b'ab'], device='cpu'), 'udp',\n"
         "                                   engine='window')\n"
         f"fs.feed_pcap_slice(m.read_pcap({str(capture)!r}))\n"

@@ -179,8 +179,9 @@ def test_guards_exit_like_jax(files, monkeypatch, argv, message):
 
 def test_negative_host_workers_and_unported(files, capsys, monkeypatch, tmp_path):
     """Negative worker counts exit like JAX; ``--stream --distributed``
-    stays refused; the attribution options and a repeated ``--pcap`` (once
-    refused here) print what the JAX CLI prints and dump the same bytes."""
+    (once refused here), the attribution options and a repeated ``--pcap``
+    (once refused here) print what the JAX CLI prints and dump the same
+    bytes."""
     monkeypatch.setenv("MSM_DEVICE", "cpu")
     monkeypatch.chdir(tmp_path)  # the relative dump path lands here
     base = ["match", "--pcap", str(files["cap"]), "--patterns", str(STANDIN)]
@@ -188,10 +189,8 @@ def test_negative_host_workers_and_unported(files, capsys, monkeypatch, tmp_path
         assert pt_main(base + argv) == jax_main(base + argv) == 1
         err = capsys.readouterr().err.splitlines()
         assert err == ["error: host_workers must be >= 0"] * 2
-    assert pt_main(base + ["--stream", "--distributed"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
-    for argv in (["--stream", "--offsets"], ["--stream", "--dump-matches", "x.pcap"],
-                 ["--pcap", str(files["cap2"])]):
+    for argv in (["--stream", "--distributed"], ["--stream", "--offsets"],
+                 ["--stream", "--dump-matches", "x.pcap"], ["--pcap", str(files["cap2"])]):
         outs = []
         for main in (pt_main, jax_main):
             assert main(base + argv) == 0
