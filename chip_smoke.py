@@ -33,7 +33,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and at one pattern a group, one tile and a list of three tiles in one
    launch; start states outside the table (S, S + 7, -1, -5) are refused
    by ``ac_scan``, ``ac_scan_tiles`` and ``count_matches_ac`` with nothing
-   launched.  ``window_find`` (``csrc/window_find.cu``) on its traps, each
+   launched; a table with a state the root does not reach (no depth) at
+   small segments asked for, the input phase 14's soak found.  ``window_find`` (``csrc/window_find.cu``) on its traps, each
    over many 16,384-position tiles: every position dense with matches (1-,
    2-, 3-byte and NUL-tailed patterns), heads and tails of a pattern on two
    sides of every row boundary, lengths past the width under NUL-tailed
@@ -218,6 +219,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    phase 3's rows at the ranks' common width), ``ac_scan`` and the filter
    class kernels on its first 1,024 rows; the records carry the ranks'
    launches as ``distributed_launches``.
+14. The verification harnesses and the demos, in process, with a seed
+   drawn and printed by the run: ``tools/differential.py`` at its default
+   budget (at least ``differential.DEFAULT_CASES`` random cases of each of
+   the 12 kernel entry points, each held to its plain version on the card
+   and every third to the ``bytes.find`` oracle; the generators must reach
+   their edges), ``tools/fuzz_soak.py`` for ``SOAK_FUZZ_MINUTES`` (every
+   engine against the oracle, the table route, ``find_matches``, the
+   streamed pipeline from pcap, pcapng and gzip), and both demos on the
+   card: ``examples/ids_demo.py`` on phase 3's capture (its alerts by
+   signature and its total equal phase 3's counts, its ``MSM_DUMP`` the
+   hit packets) and ``examples/flow_ids_demo.py`` on its own capture and
+   on a seeded capture of ``DEMO_FLOWS`` TCP flows (its alerts, streamed
+   alerts and misses equal the window kernel's counts over the reassembled
+   flows and the per-packet counts).  Any divergence fails the run; the
+   phase's wall and each part's seconds are printed, and the records carry
+   each kernel's cases as ``soak_cases``.
 
 The line before the last is one JSON object with a record per kernel, each
 with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -235,6 +252,7 @@ the host could not stay ahead: the upper bound is printed instead).
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import ctypes
 import copy
@@ -271,6 +289,10 @@ PLAIN_RUNS = 5
 SERIAL_RUNS = 3
 ALT_ROUNDS = 6
 RULES = 3072
+SOAK_FUZZ_MINUTES = 0.5
+DEMO_FLOWS = 48
+DEMO_FLOW_BYTES = 4096
+DEMO_SEGMENT = 600
 ALNUM = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
 
 
@@ -2221,6 +2243,46 @@ def scan_checks(dev, compare, sc) -> None:
               f"{built:.3f} s), KMP M={dfas.shape[1]} ({kmp.table.dtype}, groups/slots/smem "
               f"{groups}), n={n} L={payload.shape[1]}, totals {found}: ac_scan and kmp_scan "
               f"equal, one tile and a list of 3 in one launch; states outside the table refused")
+    unreached_depth_check(dev, compare, sc, AhoCorasick)
+
+
+def unreached_depth_check(dev, compare, sc, AhoCorasick) -> None:
+    """The input ``tools/differential.py`` found (seed 1, case 22): an
+    automaton of 37 patterns over two symbols with one more state that the
+    root does not reach (``CompiledAC.depth`` None), carried start states
+    (that state among them), 53-byte segments asked for, a [163 x 1009]
+    tile.  A row must be one segment: segments started from the root
+    without a warm-up counted 129 matches too few."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 9)
+    sym = np.array([0xB5, 0xE5], np.uint8)
+    pats = [bytes(rng.choice(sym, size=int(rng.integers(1, 40)))) for _ in range(37)]
+    ac = AhoCorasick.build(pats)
+    S = ac.dead_state
+    goto = np.empty((S + 2, 256), np.int32)
+    goto[:S] = ac.goto[:S]
+    goto[S] = rng.integers(0, S + 1, size=256)
+    goto[S + 1] = S + 1
+    emit = np.zeros((S + 2, ac.emit.shape[1]), np.int32)
+    emit[:S] = ac.emit[:S]
+    emit[S] = rng.random(ac.emit.shape[1]) < 0.5
+    cac = sc.CompiledAC.from_numpy(goto, emit, ac.dup_map, device=dev)
+    check(cac.depth is None, "the extra state leaves the table without a depth")
+    p = torch.from_numpy(sym[rng.integers(0, 2, size=(163, 1009))]).to(dev)
+    ln = torch.from_numpy(rng.integers(-8, 1017, size=163).astype(np.int32)).to(dev)
+    states = rng.integers(0, cac.dead + 1, size=163).astype(np.int32)
+    states[::7] = S
+    st = torch.from_numpy(states).to(dev)
+    for per_packet in (False, True):
+        want, want_st = sc.ac_scan_plain(cac, p, ln, st, per_packet=per_packet)
+        for seg in (None, 53, 16):
+            got, got_st = sc.ac_scan(cac, p, ln, st, per_packet=per_packet, seg_bytes=seg)
+            what = f"no depth, per_packet={per_packet} segments={seg}"
+            compare("ac_scan", got, want, what)
+            compare("ac_scan", got_st, want_st, f"{what} states")
+    print(f"scan kernel check no-depth: {S + 2} states, one unreached, 53- and 16-byte "
+          f"segments asked for, totals {int(want.sum())}: ac_scan equal")
 
 
 def scan_bound(nbytes: int, row_bytes: int, table_bytes: int, out_ints: int, ops: float) -> dict:
@@ -3149,6 +3211,154 @@ def distributed_phase(dev, card: str, cli, cw, ct, sc, matcher, patterns, pat_fi
     return launches
 
 
+def demo_flow_capture(patterns, path: pathlib.Path) -> pathlib.Path:
+    """``DEMO_FLOWS`` seeded TCP flows of ``DEMO_FLOW_BYTES`` printable bytes,
+    each planted with 4 patterns at random offsets and 2 across a segment
+    boundary, in ``DEMO_SEGMENT``-byte segments, interleaved."""
+    from multithreading_string_matching_tpu_torch.io.synth import synth_tcp_flows_pcap
+
+    rng = np.random.default_rng(SEED + 40)
+    flows = []
+    for i in range(DEMO_FLOWS):
+        pay = rng.integers(0x20, 0x7F, size=DEMO_FLOW_BYTES, dtype=np.uint8)
+        for _ in range(4):
+            p = patterns[int(rng.integers(0, len(patterns)))]
+            o = int(rng.integers(0, DEMO_FLOW_BYTES - len(p)))
+            pay[o : o + len(p)] = np.frombuffer(p, np.uint8)
+        for _ in range(2):
+            p = patterns[int(rng.integers(0, len(patterns)))]
+            if len(p) > 1:
+                edge = DEMO_SEGMENT * int(rng.integers(1, DEMO_FLOW_BYTES // DEMO_SEGMENT))
+                o = edge - int(rng.integers(1, len(p)))
+                pay[o : o + len(p)] = np.frombuffer(p, np.uint8)
+        flows.append(((f"10.7.{i // 200}.{i % 200 + 1}", "10.7.255.1", 2000 + i, 80),
+                      pay.tobytes(), [DEMO_SEGMENT] * (-(-DEMO_FLOW_BYTES // DEMO_SEGMENT))))
+    synth_tcp_flows_pcap(path, flows, interleave_seed=SEED)
+    return path
+
+
+def demo_output(main_fn, argv, **env) -> str:
+    """A demo's stdout from ``main_fn(argv)`` run in this process, with
+    ``env`` set around it; a non-zero return fails the run."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main_fn(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(rc == 0, f"demo {main_fn.__module__} {argv} returned {rc}")
+    return out.getvalue()
+
+
+def alerts_by_signature(text: str, prefix: str) -> dict:
+    """``{signature bytes: lines}`` of a demo's lines that start with
+    ``prefix`` and end in ``...: 'sig'`` or ``signature='sig'``."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            sig = ast.literal_eval(re.search(r"(?:signature=|: )('.*')$", line)[1])
+            key = sig.encode("latin-1")
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def soak_phase(dev, card: str, cap, pat_file, patterns, counts) -> dict:
+    """Phase 14: the differential soak, the fuzz soak and both demos on the
+    card.  Returns ``{kernel record name: soak cases}``."""
+    from multithreading_string_matching_tpu_torch.api import Matcher
+    from multithreading_string_matching_tpu_torch.examples import flow_ids_demo, ids_demo
+    from multithreading_string_matching_tpu_torch.io.decode import extract_payloads
+    from multithreading_string_matching_tpu_torch.io.flows import extract_flows
+    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap
+    from multithreading_string_matching_tpu_torch.tools import differential, fuzz_soak
+
+    t_phase = time.perf_counter()
+    seed = int.from_bytes(os.urandom(4), "little")
+    print(f"soak seed: {seed} [{card}]")
+    out = pathlib.Path(tempfile.mkdtemp(prefix="msm_soak_"))
+    t0 = time.perf_counter()
+    stats = differential.soak(seed, device=dev, out=out)
+    diff_s = time.perf_counter() - t0
+    for line in differential.summary_lines(stats, seed, "cuda", card):
+        print(line)
+    short = [t for t in differential.TARGETS if stats[t]["cases"] < differential.DEFAULT_CASES]
+    check(not short, f"differential: entry points under {differential.DEFAULT_CASES} cases: {short}")
+
+    t0 = time.perf_counter()
+    fuzz_cases, ran = fuzz_soak.soak(SOAK_FUZZ_MINUTES, seed, dev)
+    fuzz_s = time.perf_counter() - t0
+    check(fuzz_cases > 0 and all(ran.get(k) for k in ("per_packet", "table", "find", "streamed")),
+          f"fuzz soak: {fuzz_cases} cases, sub-checks {ran}")
+    print(f"fuzz soak clean: {fuzz_cases} cases, seed={seed}, {ran} in {fuzz_s:.3f} s [{card}]")
+
+    t0 = time.perf_counter()
+    uniq_counts = {}
+    for p, c in zip(patterns, counts.tolist()):
+        if c:
+            uniq_counts[p] = c
+    dump = out / "ids_hits.pcap"
+    text = demo_output(ids_demo.main, [str(cap), str(pat_file), "udp"], MSM_DUMP=str(dump))
+    alerts = alerts_by_signature(text, "ALERT packet=")
+    check(alerts == uniq_counts, "ids_demo: alerts by signature differ from phase 3's counts")
+    check(f"# {int(counts.sum())} matches in " in text, "ids_demo: total differs from phase 3's")
+    hit_packets = {int(m) for m in re.findall(r"(?m)^ALERT packet=(\d+) ", text)}
+    check(f"# wrote {len(hit_packets)} matching packets" in text and
+          read_pcap(dump).num_packets == len(hit_packets), "ids_demo: MSM_DUMP")
+    ids_alerts = sum(alerts.values())
+
+    text = demo_output(flow_ids_demo.main, [])
+    check(text.count("\nALERT flow") == 3 and text.count("STREAM-ALERT") == 3,
+          f"flow_ids_demo (no arguments):\n{text}")
+    flow_cap = demo_flow_capture(patterns, out / "demo_flows.pcap")
+    text = demo_output(flow_ids_demo.main, [str(flow_cap), str(pat_file), "tcp"])
+    pcap = read_pcap(flow_cap)
+    fb = extract_flows(pcap, "tcp")
+    m = Matcher(patterns, device=dev)
+    check(m.explain()["pallas_kernel"] == "cuda-window", "the stand-in set takes the window kernel")
+    flow_counts = m.count(fb.payloads, fb.lengths)
+    want = {}
+    for p, c in zip(patterns, flow_counts.tolist()):
+        if c:
+            want[p] = c
+    check(alerts_by_signature(text, "ALERT flow") == want,
+          "flow_ids_demo: alerts differ from the window kernel's counts over the flows")
+    check(alerts_by_signature(text, "STREAM-ALERT") == want,
+          "flow_ids_demo: streamed alerts differ from the window kernel's counts")
+    missed = flow_counts - m.count_batch(extract_payloads(pcap, "tcp", strict=True))
+    want_missed = {p: int(d) for p, d in zip(patterns, missed.tolist()) if d > 0}
+    got_missed = {}
+    for d, sig in re.findall(r"(?m)^# per-packet scanning would have MISSED (\d+) x (.*) \(split",
+                             text):
+        got_missed[ast.literal_eval(sig).encode("latin-1")] = int(d)
+    check(want_missed and got_missed == want_missed, "flow_ids_demo: misses")
+    demo_s = time.perf_counter() - t0
+    shutil.rmtree(out)
+    print(f"demos on the card: ids_demo {ids_alerts} alerts = phase 3's counts; flow_ids_demo "
+          f"{sum(want.values())} alerts over {fb.num_flows} flows = the window kernel's, "
+          f"{sum(want_missed.values())} missed per packet [{card}]")
+    print(f"phase 14: {time.perf_counter() - t_phase:.3f} s wall (differential {diff_s:.3f} s, "
+          f"fuzz soak {fuzz_s:.3f} s, demos {demo_s:.3f} s) [{card}]")
+    by_record = {
+        "window_count_totals": ["window_count_totals"],
+        "window_count_rows": ["window_count_rows"],
+        "window_count_totals_repeated": ["window_count_totals_repeated"],
+        "window_count_halo": ["window_count_halo"],
+        "table_filter_count_totals": ["table_count_totals", "filter_count_totals"],
+        "table_filter_count_rows": ["table_count_rows", "filter_count_rows"],
+        "shard_table_kernel_counts": ["shard_table_count_totals", "shard_filter_count_totals"],
+        "shard_table_kernel_rows": ["shard_table_count_rows", "shard_filter_count_rows"],
+        "mxu_count": ["mxu_count"], "window_find": ["window_find"],
+        "ac_scan": ["ac_scan"], "kmp_scan": ["kmp_scan"],
+    }
+    return {name: stats[t]["cases"] for t, names in by_record.items() for name in names}
+
+
 def main() -> int:
     import torch
 
@@ -3619,6 +3829,9 @@ def run(dev) -> int:
                                              big_counts, compare)
     rules_file.unlink()
 
+    # -- 14. the verification harnesses and the demos -------------------------------
+    soak_cases = soak_phase(dev, card, cap, pat_file, patterns, counts)
+
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
     ref = "multithreading_string_matching_tpu/ops/pallas_window.py"
     tsrc = "multithreading_string_matching_tpu_torch/csrc/table_count.cu"
@@ -3680,6 +3893,7 @@ def run(dev) -> int:
             rec["live_launches"] = live_launches[rec["name"]]
         if rec["name"] in distributed_launches:
             rec["distributed_launches"] = distributed_launches[rec["name"]]
+        rec["soak_cases"] = soak_cases[rec["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"], max_err.get(rec["name"], 0))
     print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s")
     print(card)

@@ -377,11 +377,14 @@ def ac_segment_bytes(depth: Optional[int], L: int, seg_bytes: Optional[int] = No
     if given, else ``max(64, 4 * depth)`` rounded up to 16, so that the
     warm-up stays under a quarter of a segment; capped at ``L`` (at least
     1).  Without a depth (a table the root does not fully reach) a row is
-    one segment."""
-    if seg_bytes is None:
-        seg_bytes = L if depth is None else -(-max(64, 4 * depth) // 16) * 16
-    if seg_bytes < 1:
+    one segment, whatever ``seg_bytes`` asks: no warm-up from the root is
+    known to reach the lane's state."""
+    if seg_bytes is not None and seg_bytes < 1:
         raise ValueError(f"segments of {seg_bytes} bytes")
+    if depth is None:
+        return max(1, int(L))
+    if seg_bytes is None:
+        seg_bytes = -(-max(64, 4 * depth) // 16) * 16
     return max(1, min(int(seg_bytes), int(L)))
 
 

@@ -57,7 +57,7 @@ def segment_model(ac, cac, payload, lengths, states, seg_bytes=None):
     written by exactly one segment."""
     n, L = payload.shape
     C = tscan.ac_segment_bytes(cac.depth, L, seg_bytes)
-    D = cac.depth
+    D = int(cac.depth or 0)  # what the wrapper hands the kernel
     segs = max(1, -(-L // C))
     counts = np.zeros((n, ac.emit.shape[1]), np.int64)
     final = np.full(n, -7, np.int64)
@@ -166,6 +166,42 @@ def test_segment_model_pattern_longer_than_a_segment(seg_bytes):
     assert model[:, 0].sum() > 10  # the long pattern itself
 
 
+@pytest.mark.parametrize("seg_bytes", [None, 16, 53])
+def test_segment_model_without_a_depth(seg_bytes):
+    """A table with a state the root does not reach has no depth: a row is
+    one segment whatever ``seg_bytes`` asks.  Small segments started from
+    the root without a warm-up and missed the matches across their starts
+    (``tools/differential.py`` on the card, seed 1, case 22: an automaton
+    over two symbols, carried states, 53-byte segments)."""
+    import types
+
+    from multithreading_string_matching_tpu_torch.models.aho_corasick import AhoCorasick
+
+    rng = np.random.default_rng(22)
+    ac = AhoCorasick.build(BOUNDARY + LONG)
+    S = ac.dead_state
+    goto = np.empty((S + 2, 256), np.int32)
+    goto[:S] = ac.goto[:S]
+    goto[S] = rng.integers(0, S + 1, size=256)  # the unreached state
+    goto[S + 1] = S + 1
+    emit = np.zeros((S + 2, ac.emit.shape[1]), np.int32)
+    emit[:S] = ac.emit[:S]
+    emit[S] = rng.random(ac.emit.shape[1]) < 0.5
+    c = tscan.CompiledAC.from_numpy(goto, emit, ac.dup_map)
+    assert c.depth is None and c.dead == S + 1
+    payload = _rows(23, 24, 300, b"abcdefghij", BOUNDARY, [lambda r: 13 * r + 40])
+    lengths = rng.integers(-3, 310, size=24).astype(np.int32)
+    states = rng.integers(0, c.dead + 1, size=24).astype(np.int32)
+    states[::4] = S
+    model, model_st = segment_model(types.SimpleNamespace(goto=goto, emit=emit), c, payload,
+                                    lengths, states, seg_bytes)
+    plain, plain_st = tscan.ac_scan_plain(c, torch.from_numpy(payload),
+                                          torch.from_numpy(lengths),
+                                          torch.from_numpy(states), per_packet=True)
+    assert plain.sum() > 0
+    assert np.array_equal(model, plain.numpy()) and np.array_equal(model_st, plain_st.numpy())
+
+
 def test_segment_model_dead_lanes_and_lengths_past_either_end():
     """Dead lanes in every position (they stay dead and count nothing),
     lengths <= 0 (the state is held, segment 0 writes it) and past L."""
@@ -262,6 +298,7 @@ def test_ac_segment_bytes():
     assert seg(300, 700) == 700          # a 300-byte pattern: one segment a row
     assert seg(12, 40) == 40 and seg(12, 0) == 1
     assert seg(None, 900) == 900         # no depth: one segment a row
+    assert seg(None, 900, 53) == 900     # ... whatever seg_bytes asks
     assert seg(12, 1280, 16) == 16 and seg(12, 10, 16) == 10
     with pytest.raises(ValueError):
         seg(12, 100, 0)
