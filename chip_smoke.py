@@ -234,7 +234,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    alerts and misses equal the window kernel's counts over the reassembled
    flows and the per-packet counts).  Any divergence fails the run; the
    phase's wall and each part's seconds are printed, and the records carry
-   each kernel's cases as ``soak_cases``.
+   each kernel's cases as ``soak_cases``; the fuzz soak must have run its
+   flow cases (``ran["flows"]``: the texts as TCP flows through the halo
+   kernel's and ``ac_scan``'s flow rounds).
+15. The audits (``AUDIT_BUDGET_S``): ``tools/sanitize.py`` runs
+   compute-sanitizer's memcheck, racecheck, synccheck and initcheck over
+   ``tools/differential.py`` at ``AUDIT_CASES`` case an entry point, the
+   kernel filter naming the port's six kernels and PyTorch's caching
+   allocator off, and its planted overrun must be reported; each record
+   (tool, cases, errors, hazards, warnings, blind spots, seconds, the
+   card) is printed.  A sanitizer that is missing or refuses the card is
+   printed as "not available" and counted as nothing checked.  Then
+   ``tools/edges.py`` (``differential --edges``): every entry point at its
+   largest accepted launch (2^31 - 2,048 positions on a 2 GiB tile built
+   on the card) and refused one row past it, the per-row forms past 2^31,
+   the DFA scans' ``split_tiles`` runs, ``find_matches``' row slices and
+   the mesh summary's slices past 2^31, and 2,155,872,256 matches of
+   ``b"z"`` through ``PackedTileCounter`` in int64, each exact against
+   counts, rows, triples and end states known by construction, under 10
+   GiB of device memory.
 
 The line before the last is one JSON object with a record per kernel, each
 with its bound (``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -290,6 +308,11 @@ SERIAL_RUNS = 3
 ALT_ROUNDS = 6
 RULES = 3072
 SOAK_FUZZ_MINUTES = 0.5
+AUDIT_CASES = 1                 # random cases an entry point, per sanitizer tool
+AUDIT_TOOL_TIMEOUT_S = 45       # one tool's child process
+AUDIT_BUDGET_S = 240            # phase 15 in all
+EDGE_CASES = 33
+EDGE_MEMORY_BYTES = 10 * 2**30
 DEMO_FLOWS = 48
 DEMO_FLOW_BYTES = 4096
 DEMO_SEGMENT = 600
@@ -3293,7 +3316,8 @@ def soak_phase(dev, card: str, cap, pat_file, patterns, counts) -> dict:
     t0 = time.perf_counter()
     fuzz_cases, ran = fuzz_soak.soak(SOAK_FUZZ_MINUTES, seed, dev)
     fuzz_s = time.perf_counter() - t0
-    check(fuzz_cases > 0 and all(ran.get(k) for k in ("per_packet", "table", "find", "streamed")),
+    check(fuzz_cases > 0 and all(ran.get(k) for k in ("per_packet", "table", "find", "streamed",
+                                                       "flows")),
           f"fuzz soak: {fuzz_cases} cases, sub-checks {ran}")
     print(f"fuzz soak clean: {fuzz_cases} cases, seed={seed}, {ran} in {fuzz_s:.3f} s [{card}]")
 
@@ -3357,6 +3381,46 @@ def soak_phase(dev, card: str, cap, pat_file, patterns, counts) -> dict:
         "ac_scan": ["ac_scan"], "kmp_scan": ["kmp_scan"],
     }
     return {name: stats[t]["cases"] for t, names in by_record.items() for name in names}
+
+
+def audit_phase(dev, card: str) -> None:
+    """Phase 15: compute-sanitizer's four tools over every kernel entry
+    point (``tools/sanitize.py``, ``AUDIT_CASES`` random cases an entry
+    point and tool, and its planted-overrun self-test), then the cases at
+    the 2^31 position limit (``tools/edges.py``).  A sanitizer error, a
+    failed tool run, an unreported self-test, an edge result that differs
+    or a shape that is not refused fails the run; a sanitizer that is
+    missing or refuses the card is printed as "not available", never as
+    clean."""
+    import torch
+
+    from multithreading_string_matching_tpu_torch.tools import edges, sanitize
+
+    t_phase = time.perf_counter()
+    seed = int.from_bytes(os.urandom(4), "little")
+    records = sanitize.audit(AUDIT_CASES, seed, timeout=AUDIT_TOOL_TIMEOUT_S)
+    for rec in records:
+        print(f"sanitize record: {json.dumps(rec)}")
+    verdict = sanitize.verdict(records)
+    check(verdict != 1, "compute-sanitizer: " + "; ".join(
+        f"{r['tool']}: {r['status']}" for r in records))
+    san_s = time.perf_counter() - t_phase
+    print(f"sanitize: {'clean' if verdict == 0 else 'not available: nothing checked'} "
+          f"in {san_s:.3f} s [{card}]")
+
+    t0 = time.perf_counter()
+    results = edges.run_edges(dev, log=lambda line: print(f"{line} [{card}]"))
+    cases = [r for r in results if "result" in r]
+    check(len(cases) == EDGE_CASES, f"edges: {len(cases)} cases, expected {EDGE_CASES}")
+    check(results[-1]["bytes"] < EDGE_MEMORY_BYTES,
+          f"edges: {results[-1]['bytes']} bytes of device memory at the peak")
+    edge_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"edges clean: {len(cases)} cases ({sum(r['result'] == 'refused' for r in cases)} "
+          f"refusals), {edge_s:.3f} s [{card}]")
+    print(f"phase 15: {wall:.3f} s wall (sanitize {san_s:.3f} s, edges {edge_s:.3f} s) [{card}]")
+    check(wall <= AUDIT_BUDGET_S, f"phase 15 took {wall:.1f} s, over its {AUDIT_BUDGET_S} s")
 
 
 def main() -> int:
@@ -3831,6 +3895,9 @@ def run(dev) -> int:
 
     # -- 14. the verification harnesses and the demos -------------------------------
     soak_cases = soak_phase(dev, card, cap, pat_file, patterns, counts)
+
+    # -- 15. the audits: compute-sanitizer and the 2^31 edges -----------------------
+    audit_phase(dev, card)
 
     src = "multithreading_string_matching_tpu_torch/csrc/window_count.cu"
     ref = "multithreading_string_matching_tpu/ops/pallas_window.py"

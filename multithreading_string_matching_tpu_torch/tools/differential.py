@@ -4,6 +4,7 @@ Counterpart of ``bench/tpu_differential.py``::
 
     python -m multithreading_string_matching_tpu_torch.tools.differential
         [--cases N] [--seconds S] [--seed K] [--device cuda|cpu] [--case I] [--out DIR]
+        [--targets A,B,...] [--edges]
 
 The CPU tests prove only the kernels' semantics, through their plain
 versions; only the card shows a kernel as it is built.  A fixed list of
@@ -34,7 +35,10 @@ the case's inputs to ``DIR/<target>-<seed>-<case>.npz`` (``--out``,
 default ``soak_out``, git-ignored) and re-raises: the run exits non-zero.
 
 On the card (``--device cuda``, the default; without a card it exits
-non-zero) each kernel call must also add exactly its launches to the
+non-zero) every input lies between two poisoned guard bands (``Case.tensor``:
+the case's pattern bytes around payloads, huge lengths, all-wildcard table
+rows), so a read past an input changes the result, and each kernel call
+must also add exactly its launches to the
 wrappers' ``LAUNCHES`` counters, and a run of at least
 :data:`COVERAGE_CASES` cases per entry point must have reached the edges
 the generators aim at (``mxu_count`` at wgmma widths 96 and 256, a
@@ -46,7 +50,12 @@ cases: nine probe masks (``ValueError``, card only), an out-of-range
 past ``split_tiles``' position limit.
 
 The summary prints one line per entry point (cases, oracle-checked cases,
-seconds) and, on the card, the card's name and power limit.
+seconds) and, on the card, the card's name and power limit.  ``--targets``
+soaks only the named entry points (each still on its own case indices, so a
+case replays the same inputs either way).  ``--edges`` runs, instead of the
+soak, the cases at the int32 position limit of ``tools/edges.py``: every
+entry point at its largest accepted launch and refused just past it, the
+slicing paths past 2^31 positions and a count past 2^31.
 """
 
 from __future__ import annotations
@@ -88,6 +97,9 @@ MAX_PATTERN_LEN = 99  # the reference's fscanf cap
 EIGHT_MASKS = (0xFF, 0xFFFF, 0xFFFFFF, 0xFFFFFFFF, 0xFF00, 0xFF0000, 0xFF000000, 0x00FF00FF)
 NINTH_MASK = 0xFFFF0000
 FIND_TILE = 16384  # csrc/window_find.cu: positions of one flattened tile
+# Poisoned bytes before and after every input on the card (a multiple of
+# 16, so inputs keep the alignment that vector loads and TMA copies need).
+GUARD_BYTES = 512
 
 
 class Divergence(AssertionError):
@@ -156,10 +168,28 @@ class Case:
         return h.hexdigest()
 
     def tensor(self, name: str) -> torch.Tensor:
+        """Input ``name`` on the case's device; on the card a view into a
+        buffer whose :data:`GUARD_BYTES` before and after it hold poison
+        (:meth:`poison`), so that a kernel reading past its input counts
+        what it read there instead of the zeros or stale bytes that
+        usually lie around a fresh tensor."""
         a = self.arrays[name]
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        a = np.ascontiguousarray(a)
+        if self.device.type != "cuda":
+            return torch.from_numpy(a).to(self.device)
+        return guarded(a, self.poison(name, GUARD_BYTES // a.itemsize, a.dtype), self.device)
+
+    def poison(self, name: str, count: int, dtype) -> np.ndarray:
+        """What lies around an input on the card: the case's pattern bytes
+        around payloads, lengths of 2^30 around lengths, all-wildcard
+        table rows (mask 0, length 1) around tables, 0 around ``ms``."""
+        if dtype == np.uint8:
+            blob = b"".join(self.patterns) or b"\xff"
+            return np.resize(np.frombuffer(blob, np.uint8), count)
+        value = {"lengths": 2**30, "eff": 2**30, "lens": 1}.get(name.rstrip("0123456789"), 0)
+        return np.full(count, value, dtype)
 
     def save(self, out: pathlib.Path) -> pathlib.Path:
         out.mkdir(parents=True, exist_ok=True)
@@ -169,6 +199,16 @@ class Case:
                  patterns_len=np.array([len(p) for p in self.patterns], np.int32),
                  **self.arrays, **{f"param_{k}": np.asarray(v) for k, v in self.params.items()})
         return path
+
+
+def guarded(a: np.ndarray, poison: np.ndarray, device) -> torch.Tensor:
+    """``a`` on ``device`` as a contiguous view into one buffer that holds
+    ``poison`` right before and right after it."""
+    g = poison.size
+    flat = np.empty(a.size + 2 * g, a.dtype)
+    flat[:g] = flat[-g:] = poison
+    flat[g : g + a.size] = a.reshape(-1)
+    return torch.from_numpy(flat).to(device)[g : g + a.size].view(a.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -1111,19 +1151,36 @@ def run_case(seed: int, index: int, device, out: pathlib.Path, log=print) -> Cas
     return case
 
 
+def parse_targets(spec: Optional[str]) -> tuple:
+    """The entry points a comma-separated ``spec`` names (all for ``None``
+    or an empty one), in :data:`TARGETS` order; raises on an unknown name."""
+    if not spec:
+        return TARGETS
+    names = {t.strip() for t in spec.split(",") if t.strip()}
+    unknown = names - set(TARGETS)
+    if unknown:
+        raise ValueError(f"unknown entry points {sorted(unknown)}; choose from {TARGETS}")
+    return tuple(t for t in TARGETS if t in names)
+
+
 def soak(seed: int, cases: int = DEFAULT_CASES, seconds: float = 0.0, device="cuda",
-         out="soak_out", log=print) -> Dict[str, dict]:
-    """At least ``cases`` cases per entry point, then whole rounds until
-    ``seconds`` have passed.  Returns ``{target: {"cases", "oracle",
-    "seconds", ...notes}}``; raises on the first divergence."""
+         out="soak_out", log=print, targets=TARGETS) -> Dict[str, dict]:
+    """At least ``cases`` cases per entry point of ``targets``, then whole
+    rounds until ``seconds`` have passed (case ``I`` is still
+    ``TARGETS[I % 12]``'s: the indices of other entry points are skipped).
+    Returns ``{target: {"cases", "oracle", "seconds", ...notes}}``; raises on
+    the first divergence."""
     device = check_device(device)
     out = pathlib.Path(out)
-    stats = {t: {"cases": 0, "oracle": 0, "seconds": 0.0} for t in TARGETS}
+    stats = {t: {"cases": 0, "oracle": 0, "seconds": 0.0} for t in targets}
     seen: Dict[str, set] = {"width": set(), "slots": set(), "rerun": set(), "bucket": set()}
     t0 = time.perf_counter()
     index = 0
     while index < cases * len(TARGETS) or (
             index % len(TARGETS) or time.perf_counter() - t0 < seconds):
+        if TARGETS[index % len(TARGETS)] not in stats:
+            index += 1
+            continue
         t1 = time.perf_counter()
         case = run_case(seed, index, device, out, log)
         st = stats[case.target]
@@ -1134,15 +1191,19 @@ def soak(seed: int, cases: int = DEFAULT_CASES, seconds: float = 0.0, device="cu
             if k in case.notes:
                 seen[k].add(case.notes[k])
         index += 1
-    stats["mxu_count"]["widths"] = sorted(seen["width"])
-    stats["kmp_scan"]["slots"] = sorted(seen["slots"])
-    stats["window_find"]["reruns_forced"] = bool(seen["rerun"])
+    edges = []
+    if "mxu_count" in stats:
+        stats["mxu_count"]["widths"] = sorted(seen["width"])
+        edges += [("mxu_count at wgmma width 96", 96 in seen["width"]),
+                  ("mxu_count at wgmma width 256", 256 in seen["width"])]
+    if "kmp_scan" in stats:
+        stats["kmp_scan"]["slots"] = sorted(seen["slots"])
+        edges.append(("KMP groups of 16 or more patterns", max(seen["slots"], default=0) >= 16))
+    if "window_find" in stats:
+        stats["window_find"]["reruns_forced"] = bool(seen["rerun"])
+        edges.append(("a window_find rerun", bool(seen["rerun"])))
     if device.type == "cuda" and cases >= COVERAGE_CASES:
-        for what, ok in (("mxu_count at wgmma width 96", 96 in seen["width"]),
-                         ("mxu_count at wgmma width 256", 256 in seen["width"]),
-                         ("a window_find rerun", bool(seen["rerun"])),
-                         ("KMP groups of 16 or more patterns",
-                          max(seen["slots"], default=0) >= 16)):
+        for what, ok in edges:
             if not ok:
                 raise Divergence(f"the generators never reached {what}")
     return stats
@@ -1150,12 +1211,12 @@ def soak(seed: int, cases: int = DEFAULT_CASES, seconds: float = 0.0, device="cu
 
 def summary_lines(stats: Dict[str, dict], seed: int, device, card: str) -> List[str]:
     lines = []
-    for t in TARGETS:
+    for t in stats:
         st = stats[t]
         extra = {k: v for k, v in st.items() if k not in ("cases", "oracle", "seconds")}
         lines.append(f"differential {t:<29} cases {st['cases']:4d}  oracle {st['oracle']:4d}  "
                      f"{st['seconds']:9.3f} s{'  ' + str(extra) if extra else ''}  [{card}]")
-    total = sum(stats[t]["cases"] for t in TARGETS)
+    total = sum(st["cases"] for st in stats.values())
     lines.append(f"differential clean: {total} cases, 0 divergences, seed={seed}, "
                  f"device={device} [{card}]")
     return lines
@@ -1171,19 +1232,34 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--case", type=int, default=None, help="run this one case only")
     ap.add_argument("--out", default="soak_out", help="where a divergent case's inputs go")
+    ap.add_argument("--targets", default=None,
+                    help="comma-separated entry points to soak (default: all 12)")
+    ap.add_argument("--edges", action="store_true",
+                    help="run the cases at the 2^31 position limit (tools/edges.py) instead")
+    ap.add_argument("--edge-limit", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     device = check_device(args.device)
+    targets = parse_targets(args.targets)
     if device.type == "cuda":
         from multithreading_string_matching_tpu_torch.utils.timing import card_line
 
         card = card_line()
     else:
         card = "cpu: plain versions only"
+    if args.edges:
+        from multithreading_string_matching_tpu_torch.tools import edges
+
+        t0 = time.perf_counter()
+        records = edges.run_edges(device, args.edge_limit or edges.LIMIT,
+                                  log=lambda line: print(f"{line} [{card}]", flush=True))
+        cases = sum(1 for r in records if "result" in r)
+        print(f"edges clean: {cases} cases, {time.perf_counter() - t0:.3f} s [{card}]")
+        return 0
     if args.case is not None:
         case = run_case(args.seed, args.case, device, pathlib.Path(args.out))
         print(f"case {args.case} ({case.target}, {case.shape()}): clean [{card}]")
         return 0
-    stats = soak(args.seed, args.cases, args.seconds, device, args.out)
+    stats = soak(args.seed, args.cases, args.seconds, device, args.out, targets=targets)
     for line in summary_lines(stats, args.seed, device.type, card):
         print(line, flush=True)
     return 0

@@ -25,7 +25,12 @@ oracle (``tools/oracle.py``).  Sampled sub-checks per case:
   sizes with and without host workers, or scanned by
   ``scan_pcap_streamed(offsets=True)`` with its triples held to the
   position oracle and (half the time) its ``--dump-matches`` file to the
-  original frames of the hit packets, in capture order.
+  original frames of the hit packets, in capture order;
+- the flow path (:func:`flow_case`, 15% of cases): the texts as TCP flows
+  with random segmentation, interleave, v6 and VLAN keys and a
+  pathological wire, counted one-shot after reassembly and by a
+  carried-state ``FlowStreamMatcher`` (both flow engines, a checkpoint
+  and load, a same-set reload, offsets held to ``find_matches``).
 
 The device is ``cuda`` by default (the kernels; without a card it exits
 non-zero); ``--device cpu`` runs the plain versions.  Case ``i`` of a run
@@ -195,6 +200,126 @@ def streamed_case(m, texts, crng, folded_texts, uniq, want) -> Optional[str]:
     return None
 
 
+def flow_case(pats, texts, crng, device="cuda") -> Optional[str]:
+    """Repackage the case's texts as TCP flows (one text a stream, random
+    segmentation, cross-flow interleave; v6 keys, VLAN tags and, half the
+    time, a pathological wire: reorder, retransmit and overlap with
+    ``reorder=True``) and hold both flow scans to the per-flow oracle: the
+    one-shot reassembly count, and a carried-state ``FlowStreamMatcher``
+    (``window`` or ``ac`` engine, random round sizes, a mid-stream
+    checkpoint and load, a reload to the same set, offsets held to
+    ``find_matches``).  Draws from ``crng`` exactly what
+    ``bench/fuzz_soak._flow_case`` draws.  ``None`` when everything agrees,
+    else what differed.
+
+    The window-engine stream runs on a matcher whose engine is ``pallas``,
+    so on the card its rounds launch ``window_count_halo`` (the JAX soak's
+    ``engine="ac"`` matcher takes the plain window form there); the ``ac``
+    stream launches ``ac_scan``.  On the card a stream that scanned bytes
+    must have launched its kernel."""
+    from multithreading_string_matching_tpu_torch.api import Matcher
+    from multithreading_string_matching_tpu_torch.io.flows import extract_flows, key_tuple_bytes
+    from multithreading_string_matching_tpu_torch.io.pcap import read_pcap, slice_pcap
+    from multithreading_string_matching_tpu_torch.io.synth import synth_tcp_flows_pcap
+    from multithreading_string_matching_tpu_torch.ops import cuda_window, scan
+    from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
+
+    ipv6 = bool(crng.random() < 0.3)
+    pathological = bool(crng.random() < 0.5)
+    vlan = bool(crng.random() < 0.3)
+    flows = []
+    for i, t in enumerate(texts[:12]):
+        if ipv6 and crng.random() < 0.5:
+            key = (f"2001:db8::{i + 1:x}", "2001:db8::ffff", 1000 + i, 80)
+        else:
+            key = (f"10.9.{i // 200}.{i % 200 + 1}", "10.0.0.1", 1000 + i, 80)
+        segs, left = [], len(t)
+        while left > 0:
+            s = int(crng.integers(1, left + 1))
+            segs.append(s)
+            left -= s
+        flows.append((key, t, segs or [0]))
+    want = oracle.oracle_counts([t for _, t, _ in flows], pats)
+    shape = f"ipv6={ipv6} pathological={pathological} vlan={vlan}"
+    knobs = {}
+    if pathological:
+        knobs = dict(reorder_seed=int(crng.integers(0, 10_000)),
+                     retransmit_rate=float(crng.random() * 0.5),
+                     overlap_rate=float(crng.random() * 0.5))
+    with tempfile.TemporaryDirectory() as d:
+        path = pathlib.Path(d) / "flows.pcap"
+        synth_tcp_flows_pcap(path, flows, interleave_seed=int(crng.integers(0, 10_000)),
+                             seed=int(crng.integers(0, 10_000)),
+                             vlan_rate=0.5 if vlan else 0.0, **knobs)
+        pcap = read_pcap(path)
+        fb = extract_flows(pcap, "tcp", ipv6=ipv6, reorder=pathological, vlan=vlan)
+        m = Matcher(pats, engine="window", device=device)
+        got = m.count(fb.payloads, fb.lengths).tolist() if fb.num_flows else [0] * len(pats)
+        if got != want:
+            return f"flows one-shot ({shape}): got {got} want {want}"
+        fse = "window" if crng.random() < 0.4 else "ac"
+        offsets_on = fse == "window" and bool(crng.random() < 0.7)
+        stream_engine = "pallas" if fse == "window" else "ac"
+
+        def mk_fs():
+            # Pathological captures need the whole capture in one round (the
+            # streaming reorder window); in-order captures fuzz small rounds.
+            return FlowStreamMatcher(
+                Matcher(pats, engine=stream_engine, device=device), "tcp", engine=fse,
+                scan_bytes=(1 << 30) if pathological else int(crng.integers(1, 64)),
+                width=int(crng.choice([8, 32, 128])), min_lanes=8, reorder=pathological,
+                ipv6=ipv6, vlan=vlan, collect_offsets=offsets_on)
+
+        kernel = "window_count_halo" if fse == "window" else "ac_scan"
+        launches = cuda_window.LAUNCHES if fse == "window" else scan.LAUNCHES
+        before = launches[kernel]
+        fs = mk_fs()
+        step = int(crng.integers(1, 6))
+        ckpt_at = int(crng.integers(0, pcap.num_packets + 1)) if crng.random() < 0.3 else None
+        # A same-set reload mid-capture: the window engine's tails carry, so
+        # both epochs' counts add up to the oracle and the offsets (bases
+        # persist) to the one-shot find.  In-order captures only: a forced
+        # round would split a scrambled capture's reordering.
+        reload_at = (int(crng.integers(0, pcap.num_packets + 1))
+                     if fse == "window" and not pathological and crng.random() < 0.25
+                     else None)
+        shape += f" engine={fse} step={step} checkpoint_at={ckpt_at} reload_at={reload_at}"
+        epoch_counts = np.zeros(len(pats), np.int64)
+        collected = []
+        for s0 in range(0, pcap.num_packets, step):
+            if ckpt_at is not None and s0 >= ckpt_at:
+                ck = fs.save(pathlib.Path(d) / "ck")
+                fs = mk_fs()
+                fs.load(ck)
+                ckpt_at = None
+            if reload_at is not None and s0 >= reload_at:
+                fs.flush()
+                if offsets_on:
+                    collected.extend(fs.drain_offsets())
+                epoch_counts += fs.reload(Matcher(pats, engine=stream_engine, device=device))
+                reload_at = None
+            fs.feed_pcap_slice(slice_pcap(pcap, s0, s0 + step, copy=False))
+        fs.flush()
+        total = (epoch_counts + fs.counts()).tolist()
+        if total != want:
+            return f"flow stream ({shape}): got {total} want {want}"
+        if torch.device(device).type == "cuda" and any(t for _, t, _ in flows) \
+                and launches[kernel] == before:
+            return f"flow stream ({shape}): scanned bytes without a {kernel} launch"
+        if offsets_on:
+            hits = collected + fs.drain_offsets()
+            bc = np.bincount([u for _, _, u in hits],
+                             minlength=len(m.window.unique_patterns))[m.window.dup_map]
+            rows = (np.asarray(m.find_matches(fb.payloads, fb.lengths)) if fb.num_flows
+                    else np.zeros((0, 3), np.int64))
+            want_tr = sorted((fb.key_tuple(int(f)), int(i), int(u)) for f, i, u in rows)
+            got_tr = sorted((key_tuple_bytes(k), int(o), int(u)) for k, o, u in hits)
+            if got_tr != want_tr or bc.tolist() != want:
+                return (f"flow stream offsets ({shape}): got {got_tr[:8]} want {want_tr[:8]} "
+                        f"bincount {bc.tolist()} counts {want}")
+    return None
+
+
 def fuzz_case(case_seed: int, device="cuda") -> dict:
     """Run one case; raise :class:`Divergence` (after printing what
     differed) on the first disagreement.  Returns what the case ran."""
@@ -205,7 +330,7 @@ def fuzz_case(case_seed: int, device="cuda") -> dict:
     folded_texts = [t.translate(FOLD) for t in texts] if nocase else texts
     match_pats = [p.translate(FOLD) for p in pats] if nocase else pats
     want = np.array(oracle.oracle_counts(folded_texts, match_pats))
-    ran = {"engines": 0, "per_packet": 0, "table": 0, "find": 0, "streamed": 0}
+    ran = {"engines": 0, "per_packet": 0, "table": 0, "find": 0, "streamed": 0, "flows": 0}
 
     def fail(what: str):
         print(f"DIVERGENCE {what}\n  case_seed={case_seed} nocase={nocase} device={device}\n"
@@ -252,6 +377,11 @@ def fuzz_case(case_seed: int, device="cuda") -> dict:
         if bad is not None:
             fail(bad)
         ran["streamed"] += 1
+    if crng.random() < 0.15:
+        bad = flow_case(pats, texts, crng, device)
+        if bad is not None:
+            fail(bad)
+        ran["flows"] += 1
     return ran
 
 
