@@ -134,9 +134,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    streamed end-to-end rate (payload bytes / wall, median of 3 after a warm
    run) async and sync and their ratio, the host stages alone with 0 and N
    workers (best of 3, as ``bench.py:291-318``), the ``data`` and ``task``
-   walls, and one streamed pass split into host seconds (ingest + extract,
-   pack, stager wait, copy and launch enqueue) and the device time of its
-   copies and kernels (CUDA events on the copy and compute streams).  The
+   walls, and one streamed pass under torch.profiler split by the
+   program's spans (``split_pass``: each ``msm.*`` span's self seconds, the
+   trace's copy and kernel device time, one window launch and one
+   ``msm.stage.dispatch`` a tile).  The
    window, table and filter records gain ``stream_launches``.
 10. Match attribution at full width (``window_find``, one ordered launch
    of ``csrc/window_find.cu``).  ``match --offsets --json`` on phase 3's
@@ -1535,6 +1536,60 @@ STREAM_BATCH = 8192          # and its ingest batch
 TASK_BATCH = 100             # count_pcap_pipelined's batch
 
 
+def split_pass(card: str, cw, matcher, cap, counts, tiles: int) -> dict:
+    """Where one streamed pass spends its time, by the program's own spans
+    (``utils.timing.span``): one ``count_pcap_streamed`` call under
+    torch.profiler; prints each ``msm`` range's count, seconds and self
+    seconds (less the union of the other ``msm`` ranges inside it) from the
+    Chrome trace, and the trace's copy and kernel device milliseconds.
+    ``key_averages`` is not used: it reads no self time for a range that
+    encloses device work.  Counts must equal ``counts``, with one window
+    launch and one ``msm.stage.dispatch`` span a tile.  Returns the self
+    seconds by range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multithreading_string_matching_tpu_torch.parallel import pipeline as pp
+
+    pp.count_pcap_streamed(matcher, cap, "udp")  # warm
+    torch.cuda.synchronize()
+    reset_launches(cw)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        got = pp.count_pcap_streamed(matcher, cap, "udp")
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    check(np.array_equal(got, counts) and cw.LAUNCHES["window_count_totals"] == tiles,
+          f"split pass: counts equal {np.array_equal(got, counts)}, launches {dict(cw.LAUNCHES)}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    ranges = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+              if e.get("cat") == "user_annotation" and e["name"].startswith("msm")]
+    n, total, own = {}, {}, {}
+    for i, (name, a, b) in enumerate(ranges):
+        covered, end = 0.0, a
+        for c, d in sorted((c, d) for j, (_, c, d) in enumerate(ranges)
+                           if j != i and a <= c and d <= b):
+            covered += max(0.0, d - max(c, end))
+            end = max(end, d)
+        n[name] = n.get(name, 0) + 1
+        total[name] = total.get(name, 0.0) + (b - a) / 1e6
+        own[name] = own.get(name, 0.0) + (b - a - covered) / 1e6
+    check(n.get("msm.stage.dispatch") == tiles,
+          f"split pass: {n.get('msm.stage.dispatch')} msm.stage.dispatch spans, {tiles} tiles")
+    dev_ms = {cat: sum(float(e["dur"]) for e in events if e.get("cat") == cat) / 1e3
+              for cat in ("gpu_memcpy", "kernel")}
+    print(f"one streamed pass, profiled: {wall:.4f} s wall; by range (count, seconds, self "
+          f"seconds): " + ", ".join(f"{k} {n[k]} {total[k]:.4f} {own[k]:.4f}" for k in sorted(
+              own, key=lambda k: -own[k])) + f"; self sum {sum(own.values()):.4f} s; device: "
+          f"copies {dev_ms['gpu_memcpy']:.4f} ms, kernels {dev_ms['kernel']:.4f} ms over {tiles} "
+          f"tiles [{card}]")
+    return own
+
+
 def stream_phase(dev, card: str, cw, ct, matcher, patterns, pat_file, cap, counts, big, rules,
                  cap2, big_counts) -> dict:
     """Phase 9, the streamed packet path; returns the launches of one
@@ -1625,39 +1680,7 @@ def stream_phase(dev, card: str, cw, ct, matcher, patterns, pat_file, cap, count
     check(sum(drains) == tiles, f"forced drain: {sum(drains)} drains of {tiles} tiles")
     print(f"forced drain after every tile: {sum(drains)} drains, counts equal")
 
-    # Where one streamed pass spends its time: the loop of
-    # count_pcap_streamed with host clocks, and CUDA events on the stager's
-    # copy stream and on the compute stream.
-    counter = pp.PackedTileCounter(matcher)
-    counter.stager.timed = True
-    torch.cuda.synchronize()
-    reset_launches(cw, ct)
-    split = {"ingest+extract": 0.0, "add": 0.0}
-    t0 = time.perf_counter()
-    it = pp._iter_extracted(cap, "udp", STREAM_BATCH, False, False, False, 0)
-    while True:
-        ta = time.perf_counter()
-        got = next(it, None)
-        tb = time.perf_counter()
-        split["ingest+extract"] += tb - ta
-        if got is None:
-            break
-        counter.add(got[1].payloads, got[1].lengths)
-        split["add"] += time.perf_counter() - tb
-    tc = time.perf_counter()
-    got = counter.totals()
-    split["final flush + drain"] = time.perf_counter() - tc
-    wall = time.perf_counter() - t0
-    check(np.array_equal(got, counts) and counter.tiles_dispatched == tiles
-          and cw.LAUNCHES["window_count_totals"] == tiles, "split pass")
-    st = counter.stager
-    split["stager wait"], split["enqueue (copies + launches)"] = st.wait_s, st.enqueue_s
-    split["pack"] = split.pop("add") - st.wait_s - st.enqueue_s
-    dms = st.device_ms()
-    print(f"one streamed pass: {wall:.4f} s wall; host " + ", ".join(
-        f"{k} {v:.4f} s" for k, v in split.items()) + f"; device: copies {dms['copy']:.4f} ms, "
-          f"kernels {dms['kernel']:.4f} ms over {tiles} tiles; (copies + kernels) / wall "
-          f"{(dms['copy'] + dms['kernel']) / 1e3 / wall:.4f} [{card}]")
+    split_pass(card, cw, matcher, cap, counts, tiles)
 
     # The task pipeline: one window_count_totals launch per 100-packet batch.
     batches = -(-MAIN_PACKETS // TASK_BATCH)

@@ -172,15 +172,13 @@ class KernelLibrary:
 
     def call(self, entry: str, *args) -> None:
         """Launch ``entry``; raise with the CUDA error when it is refused.
-        Under torch.profiler the launch is a range labelled ``entry``, so a
-        trace names the wrapper beside the device kernel."""
-        import torch
+        Under torch.profiler the launch is a span labelled ``entry``
+        (``utils.timing.span``), so a trace names the wrapper beside the
+        device kernel."""
+        from multithreading_string_matching_tpu_torch.utils.timing import span
 
         fn = getattr(self.load(), entry)
-        if torch.autograd._profiler_enabled():
-            with torch.profiler.record_function(entry):
-                rc = fn(*args)
-        else:
+        with span(entry):
             rc = fn(*args)
         if rc != 0:
             raise RuntimeError(

@@ -18,6 +18,15 @@ wrap (``DRAIN_POSITIONS``); the drains and the final ``totals()`` are the
 only host syncs of a pass.  With ``host_workers`` the ingest and decode
 stages run on threads (parallel/host.py); every CUDA call stays on the
 caller's thread.
+
+Under ``torch.profiler`` the serving path's stages are spans
+(``utils.timing.span``), one a batch or a tile, nested in time on the
+caller's thread: ``msm.stream`` (one :func:`count_pcap_streamed` call),
+``msm.ingest`` and ``msm.decode`` (each batch's read and record walk, its
+header decode and payload gather; sequential ingest only: a profiler does
+not record ``host_workers`` threads), ``msm.pack`` (:meth:`PackedTileCounter.add`)
+and ``msm.drain`` (the accumulator's fetch), around the stager's
+``msm.stage.*`` spans and the kernels' launch ranges.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from multithreading_string_matching_tpu_torch.io.pcap import (
 from multithreading_string_matching_tpu_torch.ops.bucketing import pack_rows
 from multithreading_string_matching_tpu_torch.ops.window import window_count
 from multithreading_string_matching_tpu_torch.parallel.stager import TileStager
+from multithreading_string_matching_tpu_torch.utils.timing import span
 
 DEFAULT_BATCH = 100  # openmp_task.c:113
 
@@ -87,7 +97,10 @@ def _iter_extracted(
     producer/worker thread split (openmp_task.c:126-186) applied to the HOST
     stages, which release the GIL in their hot paths (file reads, the
     native record walk, the native decode/fill).  Order is preserved.
-    0 = sequential (identical results either way)."""
+    0 = sequential (identical results either way).  Sequential ingest opens
+    an ``msm.ingest`` span around each read of the chunk iterator (the read
+    that finds the end included) and an ``msm.decode`` span around each
+    extraction, both closed before the pair is yielded."""
     chunks = _iter_pcap_paths(pcap_path, batch_packets)
     if host_workers:
         from multithreading_string_matching_tpu_torch.parallel.host import (
@@ -105,10 +118,14 @@ def _iter_extracted(
             workers=host_workers,
         )
         return
-    for chunk in chunks:
-        yield chunk, extract_payloads(
-            chunk, mode, strict=strict, vlan=vlan, ipv6=ipv6
-        )
+    while True:
+        with span("msm.ingest"):
+            chunk = next(chunks, None)
+        if chunk is None:
+            return
+        with span("msm.decode"):
+            batch = extract_payloads(chunk, mode, strict=strict, vlan=vlan, ipv6=ipv6)
+        yield chunk, batch
 
 
 def iter_batches(
@@ -190,54 +207,55 @@ def count_pcap_streamed(
     its rows, ``'patterns'`` the rule set (each shard scans every tile with
     1/N of it, parallel/pattern_shard.py), ``'both'`` a 2-D mesh.
     """
-    if mesh is not None and not sharded:
-        raise ValueError("mesh= is only meaningful with sharded=True")
-    if shard_axis not in ("packets", "patterns", "both"):
-        raise ValueError(f"unknown shard_axis {shard_axis!r}")
-    if any(0 in p for p in matcher.window.unique_patterns):
-        if sync_dispatch:
-            # The blocking-schedule measurement mode only exists on the
-            # packed-tile path; silently timing the per-row fallback would
-            # report a fictitious "overlap gain".
-            raise ValueError(
-                "sync_dispatch requires the packed-tile path (NUL-free "
-                "patterns); this set falls back to the per-row scanner"
+    with span("msm.stream"):
+        if mesh is not None and not sharded:
+            raise ValueError("mesh= is only meaningful with sharded=True")
+        if shard_axis not in ("packets", "patterns", "both"):
+            raise ValueError(f"unknown shard_axis {shard_axis!r}")
+        if any(0 in p for p in matcher.window.unique_patterns):
+            if sync_dispatch:
+                # The blocking-schedule measurement mode only exists on the
+                # packed-tile path; silently timing the per-row fallback would
+                # report a fictitious "overlap gain".
+                raise ValueError(
+                    "sync_dispatch requires the packed-tile path (NUL-free "
+                    "patterns); this set falls back to the per-row scanner"
+                )
+            # Packing is inexact for NUL-containing patterns; the per-row
+            # streamed scanner is still bounded-memory and fills the stats.
+            return scan_pcap_streamed(
+                matcher, pcap_path, mode,
+                batch_packets=batch_packets,
+                strict=strict, vlan=vlan, ipv6=ipv6, stats=stats,
+                sharded=sharded, mesh=mesh, shard_axis=shard_axis,
+                host_workers=host_workers,
             )
-        # Packing is inexact for NUL-containing patterns; the per-row
-        # streamed scanner is still bounded-memory and fills the stats.
-        return scan_pcap_streamed(
-            matcher, pcap_path, mode,
-            batch_packets=batch_packets,
-            strict=strict, vlan=vlan, ipv6=ipv6, stats=stats,
+        counter = PackedTileCounter(
+            matcher, engine=engine, tile_rows=tile_rows, pack_width=pack_width,
             sharded=sharded, mesh=mesh, shard_axis=shard_axis,
-            host_workers=host_workers,
+            sync_dispatch=sync_dispatch,
         )
-    counter = PackedTileCounter(
-        matcher, engine=engine, tile_rows=tile_rows, pack_width=pack_width,
-        sharded=sharded, mesh=mesh, shard_axis=shard_axis,
-        sync_dispatch=sync_dispatch,
-    )
-    if stats is not None:
-        # The engine the counter ACTUALLY resolved, so CLI blobs echo it.
-        stats["engine_resolved"] = counter.engine
-        if host_workers:
-            stats["host_workers"] = host_workers
-    n_packets = n_valid = n_bytes = 0
-    for _chunk, batch in _iter_extracted(
-        pcap_path, mode, batch_packets, strict, vlan, ipv6, host_workers
-    ):
-        n_packets += batch.num_packets
-        n_valid += int(batch.valid.sum())
-        n_bytes += batch.total_payload_bytes
-        counter.add(batch.payloads, batch.lengths)
-    if stats is not None:
-        stats.update(
-            packets=n_packets, valid_payloads=n_valid, payload_bytes=n_bytes
-        )
-    counts = counter.totals()
-    if counts.size and counts.max() > np.iinfo(np.int32).max:
-        return counts  # beyond int32: return the exact int64 totals
-    return counts.astype(np.int32)
+        if stats is not None:
+            # The engine the counter ACTUALLY resolved, so CLI blobs echo it.
+            stats["engine_resolved"] = counter.engine
+            if host_workers:
+                stats["host_workers"] = host_workers
+        n_packets = n_valid = n_bytes = 0
+        for _chunk, batch in _iter_extracted(
+            pcap_path, mode, batch_packets, strict, vlan, ipv6, host_workers
+        ):
+            n_packets += batch.num_packets
+            n_valid += int(batch.valid.sum())
+            n_bytes += batch.total_payload_bytes
+            counter.add(batch.payloads, batch.lengths)
+        if stats is not None:
+            stats.update(
+                packets=n_packets, valid_payloads=n_valid, payload_bytes=n_bytes
+            )
+        counts = counter.totals()
+        if counts.size and counts.max() > np.iinfo(np.int32).max:
+            return counts  # beyond int32: return the exact int64 totals
+        return counts.astype(np.int32)
 
 
 class PackedTileCounter:
@@ -360,7 +378,8 @@ class PackedTileCounter:
     def _drain(self):
         if self._total is None:
             return
-        t = self._total.cpu().numpy().astype(np.int64)
+        with span("msm.drain"):
+            t = self._total.cpu().numpy().astype(np.int64)
         self._host_total = t if self._host_total is None else self._host_total + t
         self._total = None
         self._tiles_since_drain = 0
@@ -387,44 +406,45 @@ class PackedTileCounter:
     def add(self, payloads, lengths):
         """Pack one feed's rows into the current tile, dispatching every
         tile that fills.  Any row count and byte width accepted."""
-        # Case-insensitive matchers fold bytes before packing (idempotent,
-        # so the oversized-payload detour through matcher.count is safe).
-        payloads_m = self.matcher._maybe_fold(
-            np.asarray(payloads, dtype=np.uint8)
-        )
-        lens = np.asarray(lengths).astype(np.int64)
-        big = lens > self.pack_width
-        if big.any():
-            # Host int64 from the first add: int32 accumulation across many
-            # oversized feeds could wrap long before totals() casts.
-            over = np.asarray(self.matcher.count(
-                payloads_m[big], lens[big], engine=self.engine
-            )).astype(np.int64)
-            self._over_total = (
-                over if self._over_total is None else self._over_total + over
+        with span("msm.pack"):
+            # Case-insensitive matchers fold bytes before packing (idempotent,
+            # so the oversized-payload detour through matcher.count is safe).
+            payloads_m = self.matcher._maybe_fold(
+                np.asarray(payloads, dtype=np.uint8)
             )
-            lens = np.where(big, 0, lens)
-        rows_c, fill_c = pack_rows(payloads_m, lens, width=self.pack_width)
-        if not fill_c.any():
-            return
-        w = rows_c.shape[1]
-        i = 0
-        while i < rows_c.shape[0]:
-            if self._slot is None:
-                self._slot = self.stager.host(self.tile_rows, self.pack_width)
-            buf, fill = self._slot
-            take = min(self.tile_rows - self._r, rows_c.shape[0] - i)
-            rs = slice(self._r, self._r + take)
-            # Every byte of a row is written: a reused slot's stale bytes
-            # never reach a kernel.
-            buf[rs, :w] = rows_c[i : i + take]
-            if w < self.pack_width:
-                buf[rs, w:] = 0
-            fill[rs] = fill_c[i : i + take]
-            self._r += take
-            i += take
-            if self._r == self.tile_rows:
-                self._dispatch()
+            lens = np.asarray(lengths).astype(np.int64)
+            big = lens > self.pack_width
+            if big.any():
+                # Host int64 from the first add: int32 accumulation across many
+                # oversized feeds could wrap long before totals() casts.
+                over = np.asarray(self.matcher.count(
+                    payloads_m[big], lens[big], engine=self.engine
+                )).astype(np.int64)
+                self._over_total = (
+                    over if self._over_total is None else self._over_total + over
+                )
+                lens = np.where(big, 0, lens)
+            rows_c, fill_c = pack_rows(payloads_m, lens, width=self.pack_width)
+            if not fill_c.any():
+                return
+            w = rows_c.shape[1]
+            i = 0
+            while i < rows_c.shape[0]:
+                if self._slot is None:
+                    self._slot = self.stager.host(self.tile_rows, self.pack_width)
+                buf, fill = self._slot
+                take = min(self.tile_rows - self._r, rows_c.shape[0] - i)
+                rs = slice(self._r, self._r + take)
+                # Every byte of a row is written: a reused slot's stale bytes
+                # never reach a kernel.
+                buf[rs, :w] = rows_c[i : i + take]
+                if w < self.pack_width:
+                    buf[rs, w:] = 0
+                fill[rs] = fill_c[i : i + take]
+                self._r += take
+                i += take
+                if self._r == self.tile_rows:
+                    self._dispatch()
 
     def flush(self):
         """Dispatch the partial tile (drain point: SIGINT, checkpoint)."""

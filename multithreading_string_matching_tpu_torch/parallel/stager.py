@@ -20,6 +20,12 @@ compute (current) stream:
 Nothing here synchronises the host with the device but the wait for a
 slot's copy, which with three slots is the copy of two tiles ago.
 
+Under ``torch.profiler`` the stages are spans (``utils.timing.span``):
+``msm.stage.alloc`` (slots built or grown), ``msm.stage.wait`` (the host
+blocked on a slot's copy) and ``msm.stage.dispatch`` (the copies and
+``fn`` enqueued; its child is the launch range of ``fn``'s kernel).  The
+trace's device events time the copies and kernels themselves.
+
 ``device="cpu"`` runs the same class on plain CPU buffers with no streams:
 ``fn`` gets the host tensors themselves.  That is the explicit CPU path;
 a stager on a CUDA device without a card raises.
@@ -27,13 +33,13 @@ a stager on a CUDA device without a card raises.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, List, Optional, Tuple, TypeVar
 
 import numpy as np
 import torch
 
 from multithreading_string_matching_tpu_torch.ops.cuda_window import canonical_device
+from multithreading_string_matching_tpu_torch.utils.timing import span
 
 R = TypeVar("R")
 
@@ -47,11 +53,6 @@ class TileStager:
     bytes and ``rows`` fills each; a request for a larger tile grows every
     slot (after one device synchronise), so callers whose tile shape varies
     size the slots to the largest shape seen.
-
-    ``wait_s`` and ``enqueue_s`` accumulate the host seconds spent waiting
-    for a slot and inside :meth:`dispatch`.  With ``timed`` set, every copy
-    and every ``fn`` is bracketed by CUDA timing events, summed by
-    :meth:`device_ms`.
     """
 
     def __init__(self, device, rows: int, width: int):
@@ -64,24 +65,21 @@ class TileStager:
         self._k = -1                 # the slot host() handed out last
         self._shape: Optional[Tuple[int, int]] = None
         self.copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
-        self.wait_s = 0.0
-        self.enqueue_s = 0.0
-        self.timed = False
-        self._spans: List[tuple] = []   # (kind, start event, end event)
         self._alloc(max(rows, 1) * max(width, 1), max(rows, 1))
 
     def _alloc(self, nbytes: int, nrows: int) -> None:
         pin = self._cuda
         self._cap = (nbytes, nrows)
-        self._host = [(torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pin),
-                       torch.zeros(nrows, dtype=torch.int32, pin_memory=pin))
-                      for _ in range(SLOTS)]
-        if self._cuda:
-            self._dev = [(torch.empty(nbytes, dtype=torch.uint8, device=self.device),
-                          torch.empty(nrows, dtype=torch.int32, device=self.device))
-                         for _ in range(SLOTS)]
-            self._copied: List[Optional[torch.cuda.Event]] = [None] * SLOTS
-            self._used: List[Optional[torch.cuda.Event]] = [None] * SLOTS
+        with span("msm.stage.alloc"):
+            self._host = [(torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pin),
+                           torch.zeros(nrows, dtype=torch.int32, pin_memory=pin))
+                          for _ in range(SLOTS)]
+            if self._cuda:
+                self._dev = [(torch.empty(nbytes, dtype=torch.uint8, device=self.device),
+                              torch.empty(nrows, dtype=torch.int32, device=self.device))
+                             for _ in range(SLOTS)]
+                self._copied: List[Optional[torch.cuda.Event]] = [None] * SLOTS
+                self._used: List[Optional[torch.cuda.Event]] = [None] * SLOTS
 
     def host(self, rows: int, width: int) -> Tuple[np.ndarray, np.ndarray]:
         """``(payload uint8[rows, width], fill int32[rows])``: numpy views of
@@ -94,9 +92,8 @@ class TileStager:
             self._alloc(max(rows * width, self._cap[0]), max(rows, self._cap[1]))
         self._k = (self._k + 1) % SLOTS
         if self._cuda and self._copied[self._k] is not None:
-            t0 = time.perf_counter()
-            self._copied[self._k].synchronize()
-            self.wait_s += time.perf_counter() - t0
+            with span("msm.stage.wait"):
+                self._copied[self._k].synchronize()
         self._shape = (rows, width)
         p, f = self._views(self._host[self._k])
         return p.numpy(), f.numpy()
@@ -117,55 +114,25 @@ class TileStager:
             raise RuntimeError("dispatch() before host()")
         if rows is not None and not 0 <= rows <= self._shape[0]:
             raise ValueError(f"rows={rows} outside the slot's {self._shape[0]} rows")
-        k = self._k
-        hp, hf = self._views(self._host[k], rows)
-        if not self._cuda:
-            return fn(hp, hf)
-        t0 = time.perf_counter()
-        dp, df = self._views(self._dev[k], rows)
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self.copy_stream):
-            if self._used[k] is not None:
-                # The twin's last kernels must be done reading it.
-                self.copy_stream.wait_event(self._used[k])
-            span = self._span("copy", self.copy_stream)
-            dp.copy_(hp, non_blocking=True)
-            df.copy_(hf, non_blocking=True)
-            self._close(span, self.copy_stream)
-            copied = torch.cuda.Event()
-            copied.record(self.copy_stream)
-        self._copied[k] = copied
-        compute.wait_event(copied)
-        span = self._span("kernel", compute)
-        out = fn(dp, df)
-        self._close(span, compute)
-        used = torch.cuda.Event()
-        used.record(compute)
-        self._used[k] = used
-        self.enqueue_s += time.perf_counter() - t0
-        return out
-
-    def _span(self, kind: str, stream):
-        if not self.timed:
-            return None
-        start = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        return kind, start
-
-    def _close(self, span, stream) -> None:
-        if span is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record(stream)
-            self._spans.append((*span, end))
-
-    def device_ms(self) -> dict:
-        """``{"copy": ms, "kernel": ms}``: the summed device time of the
-        copies and of the ``fn`` calls dispatched while ``timed`` was set
-        (synchronises the device; empty on the CPU)."""
-        out = {"copy": 0.0, "kernel": 0.0}
-        if not self._spans:
+        with span("msm.stage.dispatch"):
+            k = self._k
+            hp, hf = self._views(self._host[k], rows)
+            if not self._cuda:
+                return fn(hp, hf)
+            dp, df = self._views(self._dev[k], rows)
+            compute = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self.copy_stream):
+                if self._used[k] is not None:
+                    # The twin's last kernels must be done reading it.
+                    self.copy_stream.wait_event(self._used[k])
+                dp.copy_(hp, non_blocking=True)
+                df.copy_(hf, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self.copy_stream)
+            self._copied[k] = copied
+            compute.wait_event(copied)
+            out = fn(dp, df)
+            used = torch.cuda.Event()
+            used.record(compute)
+            self._used[k] = used
             return out
-        torch.cuda.synchronize(self.device)
-        for kind, start, end in self._spans:
-            out[kind] += start.elapsed_time(end)
-        return out

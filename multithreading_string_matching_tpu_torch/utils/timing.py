@@ -9,9 +9,13 @@ post-scatter, mpi_dumping.c:166-168; live prints no time).  Here every run
 records named phases — ingest / extract / compile / h2d / scan / reduce —
 so numbers are comparable across execution modes, plus a total.
 
-:func:`cuda_ms` times device work with CUDA events, :func:`queued_ms` the
-device time of one call queued ahead of the card, and :func:`card_line`
-names the card and its power limit, to be printed beside every such time.
+:func:`span` opens a named range in a ``torch.profiler`` trace, on the
+profiler's clock beside the card's kernels and copies, and costs one check
+when no profiler runs: the port's one span mechanism (``msm.*`` stages of
+the streamed path, ``msm_<entry>`` kernel launches).  :func:`cuda_ms` times
+device work with CUDA events, :func:`queued_ms` the device time of one call
+queued ahead of the card, and :func:`card_line` names the card and its
+power limit, to be printed beside every such time.
 """
 
 from __future__ import annotations
@@ -19,9 +23,15 @@ from __future__ import annotations
 import statistics
 import subprocess
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, Tuple
+from typing import ContextManager, Dict, Iterator, Tuple
+
+import torch
+
+# What span() returns when no profiler runs: one shared context, so the off
+# path allocates nothing.
+_NO_SPAN = nullcontext()
 
 
 @dataclass
@@ -46,6 +56,16 @@ class PhaseTimer:
         return " ".join(parts + [f"total={self.total:.6f}s"])
 
 
+def span(name: str) -> ContextManager:
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    records this thread, else one shared no-op context.  Spans nest in time
+    on the caller's thread; a profiler does not record ranges opened in
+    threads it was not started in."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
     power.limit --format=csv,noheader`` reports them."""
@@ -58,8 +78,6 @@ def card_line() -> str:
 
 def cuda_ms(fn, runs: int, warmup: int = 2) -> float:
     """Median milliseconds of ``fn`` between CUDA events on the current stream."""
-    import torch
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -85,8 +103,6 @@ def queued_ms(fn, runs: int = 3) -> Tuple[float, bool]:
     slower side, is not in it.  Otherwise the host fell behind (a full
     launch queue blocks it) and the time is an upper bound.  ``fn`` must not
     synchronise."""
-    import torch
-
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
