@@ -132,22 +132,29 @@ def parse_records(buf: np.ndarray, swapped: bool, strict: bool):
     return tuple(arrs)
 
 
-def parse_stream(pend: bytearray, pos: int, swapped: bool, batch_max: int, max_record: int):
+def parse_stream(pend, pos: int, swapped: bool, batch_max: int, max_record: int):
     """Native streaming record walk over ``pend[pos:]``: parse every
     complete record, at most ``batch_max``.  Returns ``(count, consumed,
     status, need, offsets, caplens, origlens, ts_sec, ts_frac)``; offsets
     are packet-data starts relative to ``pos``, and status is 0 (needs
     ``need`` more bytes), 1 (batch full) or 2 (a record over
-    ``max_record``).  The buffer export is released before returning, so
-    the caller may resize ``pend`` again."""
+    ``max_record``).  ``pend`` is the streaming buffer, a bytearray whose
+    export is released before returning (the caller may resize it again),
+    or a 1-D uint8 array, read-only ones included (a mapped capture: the
+    walk only reads)."""
     lib = _need_lib()
     avail = len(pend) - pos
     cap = max(1, min(int(batch_max), avail // 16 + 1))
     arrs = [np.empty(cap, dtype=np.int64) for _ in range(5)]
     state = np.zeros(3, dtype=np.int64)
-    # The ctypes array decays to a pointer at the call; ctypes.cast would
-    # keep the export alive and the caller's next resize of pend would raise.
-    c_buf = (ctypes.c_uint8 * avail).from_buffer(pend, pos)
+    if isinstance(pend, bytearray):
+        # The ctypes array decays to a pointer at the call; ctypes.cast would
+        # keep the export alive and the caller's next resize of pend would raise.
+        c_buf = (ctypes.c_uint8 * avail).from_buffer(pend, pos)
+    else:
+        if pend.dtype != np.uint8 or pend.ndim != 1 or not pend.flags.c_contiguous:
+            raise ValueError("parse_stream: pend must be a contiguous 1-D uint8 array")
+        c_buf = _u8(pend[pos:])
     try:
         count = lib.msm_parse_stream(
             c_buf, avail, int(swapped), cap, max_record,

@@ -19,10 +19,12 @@ corpus with packets numbered in input order.
 
 from __future__ import annotations
 
+import mmap
 import os
+import stat
 import struct
 from dataclasses import dataclass
-from typing import BinaryIO, Iterator, Union
+from typing import BinaryIO, Dict, Iterator, Optional, Union
 
 import numpy as np
 
@@ -37,6 +39,15 @@ LINKTYPE_ETHERNET = 1
 # buffer gigabytes before the file turns out to end (read_pcap, holding the
 # whole file, has no such cap).
 _MAX_STREAM_RECORD = 1 << 28
+
+# Records a native call of the mapped walk may return: bounds its index
+# arrays when ``batch_packets`` exceeds the capture.
+_MAPPED_STEP = 1 << 16
+
+# Batches yielded by iter_pcap, by ingest path: "mapped" (a regular classic
+# file walked in place through a read-only mapping) or "read" (every other
+# source: read into a buffer, each batch copied out of it).
+INGEST: Dict[str, int] = {"mapped": 0, "read": 0}
 
 _GLOBAL_HDR = struct.Struct("<IHHiIII")
 _GLOBAL_HDR_BE = struct.Struct(">IHHiIII")
@@ -235,6 +246,15 @@ def open_capture(source) -> BinaryIO:
 def _source_seekable(f) -> bool:
     probe = getattr(f, "seekable", None)
     return bool(probe and probe())
+
+
+def _mappable_fd(f) -> Optional[int]:
+    """The descriptor under ``f`` when :func:`open_capture` opened it by
+    path, found no codec magic, and it is a regular file; else None."""
+    if not isinstance(f, _PrefixReader) or not f._owns:
+        return None
+    fd = f._f.fileno()
+    return fd if stat.S_ISREG(os.fstat(fd).st_mode) else None
 
 
 @dataclass(frozen=True)
@@ -778,16 +798,23 @@ def iter_pcap(
     use_native: bool = True,
 ) -> Iterator[PcapFile]:
     """Stream a classic or pcapng capture as :class:`PcapFile` batches of at most
-    ``batch_packets`` packets, reading ``read_size`` bytes at a time: peak
-    residency is one batch plus one read buffer.  Concatenated, the batches
-    equal :func:`read_pcap`'s packets byte for byte.
+    ``batch_packets`` packets.  Concatenated, the batches equal
+    :func:`read_pcap`'s packets byte for byte.
 
     ``path`` is a path, ``"-"`` (stdin) or a binary file object (the
     ``tcpdump -w - | ... --stream`` shape).  ``strict=False`` keeps the
     complete prefix of a truncated capture.  ``use_native`` takes the C++
     streaming record walk, which keeps each batch's record headers in
-    ``buf`` (offsets point past them) so a batch is one copy; pcapng walks
-    block by block (:func:`_iter_pcapng_stream`), runs of packet blocks in C++.
+    ``buf`` (offsets point past them).
+
+    A classic capture that this function opens by path, uncompressed and a
+    regular file, with the native walk available, is mapped read-only and
+    walked in place (:func:`_iter_mapped`): each batch's ``buf`` is a
+    read-only view of the mapping, no byte copied.  Every other source is
+    read ``read_size`` bytes at a time and each batch copied out of the read
+    buffer (peak residency one batch plus one read buffer); pcapng walks
+    block by block (:func:`_iter_pcapng_stream`), runs of packet blocks in
+    C++.  :data:`INGEST` counts the batches of each path.
     """
     if batch_packets < 1:
         raise ValueError("batch_packets must be >= 1")
@@ -801,6 +828,15 @@ def iter_pcap(
             return
         head += _stream_read(f, 20, True)
         swapped, nanos, snaplen, linktype = _parse_global_header(head)
+        if use_native:
+            from multithreading_string_matching_tpu_torch.io import native
+
+            use_native = native.available()
+        fd = _mappable_fd(f) if use_native else None
+        if fd is not None:
+            yield from _iter_mapped(fd, swapped, batch_packets, strict,
+                                    dict(linktype=linktype, snaplen=snaplen, nanos=nanos))
+            return
         rec = struct.Struct(">IIII" if swapped else "<IIII")
 
         pend = bytearray()
@@ -833,6 +869,7 @@ def iter_pcap(
                 lst.clear()
             buf_pos = 0
             n_rec = 0
+            INGEST["read"] += 1
             return out
 
         seekable = _source_seekable(f)
@@ -853,17 +890,6 @@ def iter_pcap(
                 else:
                     pend.extend(b)
             return len(pend) - pos >= need
-
-        if use_native:
-            from multithreading_string_matching_tpu_torch.io import native
-
-            use_native = native.available()
-
-        def too_big(size: int) -> ValueError:
-            return ValueError(
-                f"pcap record of {size} bytes exceeds the {_MAX_STREAM_RECORD}-byte "
-                "streaming bound; use read_pcap for this capture"
-            )
 
         while True:
             if not refill(16):
@@ -893,7 +919,7 @@ def iter_pcap(
                     continue
                 if status == 2:  # oversized record
                     if strict:
-                        raise too_big(need)
+                        raise _too_big(need)
                     break
                 # status 0: the next record straddles the buffer's end.
                 if need == 16:
@@ -909,7 +935,7 @@ def iter_pcap(
             sec, frac, incl, orig = rec.unpack_from(pend, pos)
             if incl > _MAX_STREAM_RECORD:
                 if strict:
-                    raise too_big(incl)
+                    raise _too_big(incl)
                 break
             if not refill(16 + incl):
                 if strict:
@@ -932,6 +958,76 @@ def iter_pcap(
                 yield flush()
         if n_rec:
             yield flush()
+
+
+def _too_big(size: int) -> ValueError:
+    return ValueError(
+        f"pcap record of {size} bytes exceeds the {_MAX_STREAM_RECORD}-byte "
+        "streaming bound; use read_pcap for this capture"
+    )
+
+
+def _iter_mapped(
+    fd: int, swapped: bool, batch_packets: int, strict: bool, meta: dict,
+) -> Iterator[PcapFile]:
+    """The classic walk of :func:`iter_pcap` over a read-only mapping of the
+    regular file ``fd``: one native walk a batch (more only past
+    ``_MAPPED_STEP`` records), each batch's ``buf`` a view of exactly the
+    records it walked, headers included.  Batches, errors and tolerances
+    are the read path's.
+
+    The mapping covers the file's size at the first batch and is unmapped
+    when the last view of it dies (the views hold it through their base).
+    Before each walk the file's size is read again: a file cut below the
+    mapped end raises ``ValueError`` when ``strict`` and otherwise ends at
+    its last complete record, so the walk never reads past the file's end.
+    A batch still held when its own pages are cut away faults on its next
+    read, as any mapping of that file would."""
+    from multithreading_string_matching_tpu_torch.io import native
+
+    size = os.fstat(fd).st_size
+    if size <= 24:  # a header-only capture
+        if size < 24 and strict:
+            raise ValueError(f"capture shrank to {size} bytes while being read")
+        return
+    data = np.frombuffer(mmap.mmap(fd, size, access=mmap.ACCESS_READ), dtype=np.uint8)
+    pos = 24
+    while True:
+        limit = size
+        now = os.fstat(fd).st_size
+        if now < size:
+            if strict:
+                raise ValueError(
+                    f"capture shrank from {size} to {now} bytes while being read")
+            limit = max(pos, now)
+        view = data[:limit]
+        start, n, parts = pos, 0, []
+        while True:
+            count, consumed, status, need, o, c, g, s, fr = native.parse_stream(
+                view, pos, swapped, min(batch_packets - n, _MAPPED_STEP), _MAX_STREAM_RECORD,
+            )
+            if count:
+                parts.append((o + (pos - start), c, g, s, fr))
+                n += count
+                pos += consumed
+            if status != 1 or n == batch_packets:
+                break
+        if n < batch_packets and strict:
+            # The walk stopped short of a full batch: the capture ends here.
+            rest = limit - pos
+            if status == 2:
+                raise _too_big(need)
+            if need > 16:
+                raise ValueError(
+                    f"truncated pcap record: needs {need - 16} bytes, file has {rest - 16}")
+            if rest:
+                raise ValueError(f"{rest} trailing bytes after last pcap record")
+        if n:
+            cols = [p[0] if len(parts) == 1 else np.concatenate(p) for p in zip(*parts)]
+            INGEST["mapped"] += 1
+            yield PcapFile(data[start:pos], *cols, **meta)
+        if n < batch_packets:
+            return
 
 
 def _iter_pcapng_stream(
@@ -1005,6 +1101,7 @@ def _iter_pcapng_stream(
         )
         offsets.clear(); caplens.clear(); origlens.clear()
         tss.clear(); tsf.clear(); chunks.clear()
+        INGEST["read"] += 1
         return out
 
     saw_packets = False

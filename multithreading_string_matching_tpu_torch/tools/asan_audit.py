@@ -7,7 +7,8 @@ Counterpart of ``bench/asan_audit.py``::
 
 The port compiles the JAX package's ``native/pcap_ingest.cpp`` (read by
 path) but calls it through its own bindings, ``io/native.py``: its own
-argtypes (``_bind``), a ``bytearray`` handed to ``msm_parse_stream``, its
+argtypes (``_bind``), ``msm_parse_stream`` over a ``bytearray`` (the read
+path) and over a read-only mapping of the capture (the mapped path), its
 own ``scatter_segments`` and ``fill_padded``.  This tool builds the source
 with ``g++ -O1 -g -fsanitize=address,undefined -fno-sanitize-recover=all``
 into the package's git-ignored ``build/``, re-executes itself with
@@ -22,14 +23,16 @@ the Python binary is not instrumented), swaps the library into
    ``read_pcap`` and by ``iter_pcap`` at several batch and read sizes,
    strict and not, with identical packets and metadata required, and
    identical errors (the one-shot classic walk: an error in both, its
-   native message being generic);
+   native message being generic); ``iter_pcap`` natively twice, by path
+   (a classic capture: the mapped walk) and through a file object (the
+   read path);
    plus the two timestamp extremes of the pcapng walk;
 2. raw garbage: ``--garbage-cases`` blobs (pure garbage behind a classic
    magic half the time, garbage behind a pcapng section header, bit-flipped
    valid classic and pcapng captures, either byte order) through
-   ``read_pcap`` and ``iter_pcap`` at random batch and read sizes, strict
-   and not: ``ValueError`` and ``OverflowError`` are the only outcomes
-   allowed besides a parse;
+   ``read_pcap`` and ``iter_pcap`` (by path and through a file object) at
+   random batch and read sizes, strict and not: ``ValueError`` and
+   ``OverflowError`` are the only outcomes allowed besides a parse;
 3. geometry: ``--geometry-cases`` random ``decode``, ``fill_padded``,
    ``pack`` and ``scatter_segments`` calls (offsets and lengths inside the
    buffer, as the parser guarantees; origlens that lie about the wire).
@@ -57,6 +60,7 @@ import time
 import numpy as np
 
 from multithreading_string_matching_tpu_torch.io import native
+from multithreading_string_matching_tpu_torch.io.pcap import INGEST
 from multithreading_string_matching_tpu_torch.ops._build import BUILD_DIR, PKG_DIR, compile_to, is_stale
 
 SO = BUILD_DIR / "libmsm_ingest_asan.so"
@@ -232,9 +236,19 @@ def _same_batches(tag: str, a, b) -> None:
                 raise AssertionError(f"{tag}: {f} differs")
 
 
+def _iter_file(path: pathlib.Path, *args, **kw) -> list:
+    """``iter_pcap``'s batches from ``path`` handed over as a file object:
+    the read path, which a path to a classic capture does not take."""
+    from multithreading_string_matching_tpu_torch.io.pcap import iter_pcap
+
+    with open(path, "rb") as f:
+        return list(iter_pcap(f, *args, **kw))
+
+
 def walk_differential(rng, tmp: pathlib.Path, captures: int) -> int:
     """Native against Python walks on ``captures`` classic and as many
-    pcapng captures; returns the walks compared."""
+    pcapng captures (``iter_pcap`` native by path and through a file
+    object); returns the walks compared."""
     from multithreading_string_matching_tpu_torch.io.pcap import iter_pcap, read_pcap
 
     walks = 0
@@ -259,16 +273,19 @@ def walk_differential(rng, tmp: pathlib.Path, captures: int) -> int:
             walks += 1
             for bp in (1, 7, 1000):
                 for rs in (64, 4 << 20):
-                    (nk, nv), (pk, pv) = (
-                        _outcome(lambda un=un: list(iter_pcap(path, bp, read_size=rs,
-                                                              strict=strict, use_native=un)))
-                        for un in (True, False))
+                    kw = dict(read_size=rs, strict=strict)
+                    (nk, nv), (fk, fv), (pk, pv) = (_outcome(run) for run in (
+                        lambda: list(iter_pcap(path, bp, **kw)),
+                        lambda: _iter_file(path, bp, **kw),
+                        lambda: list(iter_pcap(path, bp, use_native=False, **kw))))
                     tag = (f"capture {trial} ({'pcapng' if ng else 'classic'}{end}) iter_pcap "
                            f"batch={bp} read={rs} strict={strict}")
-                    if nk != pk or (nk == "err" and nv != pv):
-                        raise AssertionError(f"{tag}: native {nk}, Python {pk}")
+                    if not nk == fk == pk or (nk == "err" and not nv == fv == pv):
+                        raise AssertionError(f"{tag}: native by path {nk}, native through a "
+                                             f"file object {fk}, Python {pk}")
                     if nk == "ok":
                         _same_batches(tag, nv, pv)
+                        _same_batches(tag, fv, pv)
                     walks += 1
     return walks
 
@@ -316,12 +333,13 @@ def garbage_fuzz(rng, tmp: pathlib.Path, cases: int) -> int:
                 read_pcap(path, strict=strict)
             except (ValueError, OverflowError):
                 pass
-            try:
-                for _ in iter_pcap(path, batch_packets=int(rng.choice([1, 7, 1000])),
-                                   read_size=int(rng.choice([32, 4096])), strict=strict):
+            kw = dict(batch_packets=int(rng.choice([1, 7, 1000])),
+                      read_size=int(rng.choice([32, 4096])), strict=strict)
+            for run in (lambda: list(iter_pcap(path, **kw)), lambda: _iter_file(path, **kw)):
+                try:
+                    run()
+                except (ValueError, OverflowError):
                     pass
-            except (ValueError, OverflowError):
-                pass
     return cases
 
 
@@ -399,7 +417,8 @@ def main(argv=None) -> int:
         walks = walk_differential(rng, tmp, CAPTURES)
         timestamp_extremes()
         print(f"structured captures clean under ASan: {2 * CAPTURES} captures, "
-              f"{walks} native/Python walk pairs, timestamp extremes", flush=True)
+              f"{walks} native/Python walk pairs, timestamp extremes; iter_pcap batches "
+              f"mapped {INGEST['mapped']}, read {INGEST['read']}", flush=True)
         garbage_fuzz(rng, tmp, args.garbage_cases)
         print(f"raw-garbage fuzz clean under ASan: {args.garbage_cases} cases", flush=True)
     geometry_fuzz(rng, args.geometry_cases)

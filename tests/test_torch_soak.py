@@ -20,6 +20,7 @@ it runs there with::
 """
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -248,6 +249,10 @@ def test_asan_audit_clean(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     assert "ASAN AUDIT CLEAN" in r.stdout
     assert "structured captures clean under ASan: 50 captures" in r.stdout
+    # Both ingest paths walked: a path to a classic capture maps it, a file
+    # object reads it.
+    counts = re.search(r"iter_pcap batches mapped (\d+), read (\d+)", r.stdout)
+    assert counts and int(counts[1]) > 0 and int(counts[2]) > 0, r.stdout
 
 
 def test_asan_audit_self_test_dies_with_the_report():
