@@ -2,11 +2,12 @@
 
 The configuration names its pattern file (``"rules": {"file": ...}``).  The
 traffic mix gives the capture's shape under ``"capture"``: how many files,
-packets a file, and the generator's parameters (``gpubench/gen/synth.py``).
-``plant_weights``, where given, maps patterns to weights; a pattern that
-appears more than once in the file carries its weight on its first entry.
-Every file is written into a directory the caller owns; file ``k`` takes the
-seed ``seed + k * 2**40``.
+the generator that writes each (``"generator"``, found by the registry in
+``gpubench/gen/<generator>.py``; ``udp`` when absent) and that generator's
+parameters.  ``plant_weights``, where given, maps patterns to weights; a
+pattern that appears more than once in the file carries its weight on its
+first entry.  Every file is written into a directory the caller owns; file
+``k`` takes the seed ``seed + k * 2**40``.
 """
 
 from __future__ import annotations
@@ -15,10 +16,9 @@ import pathlib
 from dataclasses import dataclass
 from typing import List, Optional
 
-from gpubench.gen.synth import synth_udp_pcap
+from gpubench import registry
 
 FILE_SEED_STRIDE = 1 << 40
-GENERATOR_KEYS = ("payload_len_jitter", "content", "lead_nul", "plant_rate", "ihl6_rate")
 
 
 @dataclass
@@ -26,7 +26,7 @@ class Inputs:
     patterns: List[bytes]           # in pattern-file order, duplicates kept
     pattern_file: pathlib.Path
     captures: List[pathlib.Path]
-    payload_bytes: List[int]        # valid UDP payload bytes of each capture
+    payload_bytes: List[int]        # payload bytes of each capture, by its generator's rule
     mode: str
 
 
@@ -63,14 +63,12 @@ def make_inputs(config: dict, traffic: dict, seed: int, root: pathlib.Path,
     pattern_file = workdir / "patterns.txt"
     pattern_file.write_bytes(b"\n".join(patterns) + b"\n")
     cap = traffic["capture"]
-    kw = {k: cap[k] for k in GENERATOR_KEYS if k in cap}
+    gen = registry.generator(cap.get("generator", registry.DEFAULT_GENERATOR))
     weights = entry_weights(patterns, cap.get("plant_weights"))
     captures, sizes = [], []
     for k in range(int(cap["files"])):
         path = workdir / f"capture{k}.pcap"
-        sizes.append(synth_udp_pcap(path, int(cap["packets"]), payload_len=int(cap["payload_len"]),
-                                    patterns=patterns, plant_weights=weights,
-                                    seed=capture_seed(seed, k), **kw))
+        sizes.append(gen.write(path, cap, patterns, weights, capture_seed(seed, k)))
         captures.append(path)
     return Inputs(patterns=patterns, pattern_file=pattern_file, captures=captures,
                   payload_bytes=sizes, mode=traffic["mode"])

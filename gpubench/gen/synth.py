@@ -1,5 +1,5 @@
 """Seeded classic-pcap UDP captures, written in bulk from a traffic mix's
-parameters: the benchmark's one generator.
+parameters: what the ``udp`` generator (``gpubench/gen/udp.py``) writes.
 
 Every frame is Ethernet/IPv4/UDP; a share of them carries 4 bytes of IP
 options (IHL 6).  A payload's length is uniform over ``payload_len ±

@@ -1,9 +1,20 @@
 """Finds what ``BENCHMARK.json`` names: a cell's configuration file, its
 traffic file (``gpubench/traffic/<traffic>.json``), the entry that traffic
-names (``gpubench/entries/<entry>.py``) and each per-layer metric's reader
+names (``gpubench/entries/<entry>.py``), the capture generator its
+``capture`` names (``gpubench/gen/<generator>.py``, ``udp`` by default), the
+reference its configuration names (``gpubench/reference/<reference>.py``,
+``udp_packets`` by default) and each per-layer metric's reader
 (``gpubench/metrics/<metric>.py``, or for ``<name>.<cell kind>`` without a
 file of its own, ``gpubench/metrics/<name>.py``).  New cells, mixes,
-entries and metrics are new files; nothing here changes for them."""
+configurations, generators, references, entries and metrics are new files;
+nothing here changes for them.
+
+A generator module exposes ``write(path, capture, patterns, weights, seed)
+-> int``: it writes one capture from the traffic's ``capture`` parameters and
+returns its payload bytes by its own rule.  A reference module exposes
+``capture_counts(path, patterns, mode, device) -> (int64 counts in
+pattern-file order, payload bytes)`` and imports nothing of the program
+under test."""
 
 from __future__ import annotations
 
@@ -14,6 +25,8 @@ import re
 from typing import List
 
 BENCH_DIR = pathlib.Path(__file__).resolve().parent
+DEFAULT_GENERATOR = "udp"
+DEFAULT_REFERENCE = "udp_packets"
 
 
 def load_benchmark(root: pathlib.Path) -> dict:
@@ -53,6 +66,14 @@ def _load(path: pathlib.Path, kind: str):
 
 def entry(name: str):
     return _load(BENCH_DIR / "entries" / f"{name}.py", "entry")
+
+
+def generator(name: str):
+    return _load(BENCH_DIR / "gen" / f"{name}.py", "generator")
+
+
+def reference(name: str):
+    return _load(BENCH_DIR / "reference" / f"{name}.py", "reference")
 
 
 def reader(metric: str):

@@ -5,12 +5,14 @@ From the root of a checkout:
 
     python3 gpubench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-The cell, its configuration, its traffic mix, the entry that mix drives and
-the per-layer readers are found by the names in ``BENCHMARK.json``
-(``gpubench/registry.py``).  A run:
+The cell, its configuration, its traffic mix, the entry that mix drives,
+the mix's capture generator, the configuration's reference and the
+per-layer readers are found by the names in ``BENCHMARK.json`` and its
+files (``gpubench/registry.py``).  A run:
 
-1. writes the cell's pattern file and captures with the generator of
-   ``gpubench/gen/`` from ``--seed`` into a temporary directory under ``TMPDIR``;
+1. writes the cell's pattern file and captures with the mix's generator
+   (``gpubench/gen/<generator>.py``) from ``--seed`` into a temporary
+   directory under ``TMPDIR``;
 2. builds the program's matcher and warms up the entry's own shapes: the
    program builds its kernels into its ``build/`` directory inside the
    checkout on the first run there, and loads them on later runs;
@@ -20,8 +22,8 @@ the per-layer readers are found by the names in ``BENCHMARK.json``
    with ``torch.profiler`` and the per-layer metrics are read from the trace,
    the program's launch counters and the entry's probes;
 4. frees the program's state, counts every capture the window answered with
-   the plain reference (``gpubench/reference/``) on the card, and compares
-   every answer of the window with it.
+   the configuration's plain reference (``gpubench/reference/<reference>.py``)
+   on the card, and compares every answer of the window with it.
 
 The last line of standard output is the result, one JSON object; the last
 lines of standard error are the numbers compared, each beside its limit.
@@ -55,7 +57,7 @@ elif str(ROOT) not in sys.path:
 
 import numpy as np  # noqa: E402
 
-from gpubench import program, reference, registry, roofline, trace  # noqa: E402
+from gpubench import program, registry, roofline, trace  # noqa: E402
 from gpubench.gen.inputs import Inputs, make_inputs  # noqa: E402
 
 # Top-level module names that no run may load: JAX and the JAX package
@@ -189,6 +191,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool, *, device
     if capture_overrides:
         traffic["capture"].update(capture_overrides)
     entry = registry.entry(traffic["entry"])
+    reference = registry.reference(cfg.get("reference", registry.DEFAULT_REFERENCE))
     e2e = registry.end_to_end(bench, workload)
     layers = registry.per_layer(bench, workload)
     readers = {m["name"]: registry.reader(m["name"]) for m in layers} if trace_on else {}

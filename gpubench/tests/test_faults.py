@@ -3,12 +3,15 @@ versions, comes out correct; with the timed path broken underneath it comes
 out not correct, once for each fault the cell can have: a pass that returns
 its state unchanged, half of the packets left out with the rest counted
 double, and an answer altered where it is produced.  (No cell spans chips:
-there is no exchange between chips to leave out.)"""
+there is no exchange between chips to leave out.)  A trial cell on a toy
+generator and a toy reference comes out not correct when its reference
+miscounts one entry."""
 
 import numpy as np
 import pytest
 
 from gpubench import run
+from gpubench.tests.plugins import trial_cell
 
 SMALL = {
     "ref_strings.stream_mega": {"packets": 1500},
@@ -60,3 +63,16 @@ def test_fault_is_not_correct(monkeypatch, workload, fault):
     result = small_run(workload)
     assert result["correct"] is False
     assert result["checks"]["wrong_answers"]["value"] == result["attempted"] >= 1
+
+
+@pytest.mark.parametrize("miscount", [0, 1])
+def test_a_trial_reference_that_miscounts_is_not_correct(tmp_path, monkeypatch, miscount):
+    workload = trial_cell(tmp_path, monkeypatch, miscount=miscount)
+    result, _ = run.run_cell(workload, SEED, 0.2, False, device="cpu")
+    checks = {k: c["value"] for k, c in result["checks"].items()}
+    if miscount:
+        assert result["correct"] is False
+        assert checks == {"wrong_answers": result["attempted"], "wrong_entries_max": 1,
+                          "payload_bytes_gap": 0}
+    else:
+        assert result["correct"] is True and set(checks.values()) == {0}

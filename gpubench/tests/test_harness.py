@@ -1,6 +1,7 @@
 """BENCHMARK.json within the limits of its format, every name
-resolving to its file, the readers on a canned trace, and the refusal to
-run without a card."""
+resolving to its file, a trial cell with its own generator and reference
+run end to end, the readers on a canned trace, and the refusal to run
+without a card."""
 
 import json
 import pathlib
@@ -12,6 +13,7 @@ import sys
 import pytest
 
 from gpubench import registry, trace
+from gpubench.tests.plugins import committed_names, trial_cell
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -105,6 +107,50 @@ def test_metrics():
     for m in e2e + layer:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert set(m.get("workloads", cells)) <= cells
+
+
+def test_committed_generator_and_reference_names_resolve():
+    gens, refs = committed_names()
+    assert registry.DEFAULT_GENERATOR in gens and registry.DEFAULT_REFERENCE in refs
+    for name in gens:
+        assert callable(registry.generator(name).write), name
+    for name in refs:
+        assert callable(registry.reference(name).capture_counts), name
+
+
+@pytest.mark.parametrize("lookup,path", [("generator", "gpubench/gen/no_such.py"),
+                                         ("reference", "gpubench/reference/no_such.py")])
+def test_an_unknown_generator_or_reference_names_its_missing_file(lookup, path):
+    with pytest.raises(KeyError, match=re.escape(str(ROOT / path))):
+        getattr(registry, lookup)("no_such")
+
+
+def test_a_trial_cell_runs_on_its_own_generator_and_reference(tmp_path, monkeypatch):
+    from gpubench import run
+
+    workload = trial_cell(tmp_path, monkeypatch)
+    looked_up = []
+    for lookup in ("generator", "reference"):
+        find = getattr(registry, lookup)
+        monkeypatch.setattr(registry, lookup, lambda name, find=find: looked_up.append(name) or find(name))
+    result, lines = run.run_cell(workload, 2**31 + 41, 0.2, False, device="cpu")
+    assert sorted(looked_up) == ["toy_gen", "toy_ref"]
+    assert result["correct"] is True and result["attempted"] >= 1 and result["failed"] == 0
+    assert set(result["metrics"]) == {"stream_MBps", "setup_s"}
+    assert all(c["value"] == 0 == c["limit"] for c in result["checks"].values())
+    assert len(lines) == 3
+
+
+@pytest.mark.parametrize("kind,names", [("gen", {"generator": "no_such_gen"}),
+                                        ("reference", {"reference": "no_such_ref"})])
+def test_a_trial_cell_naming_a_missing_plugin_fails_with_its_path(tmp_path, monkeypatch, kind,
+                                                                 names):
+    from gpubench import run
+
+    workload = trial_cell(tmp_path, monkeypatch, **names)
+    missing = tmp_path / kind / f"{next(iter(names.values()))}.py"
+    with pytest.raises(KeyError, match=re.escape(str(missing))):
+        run.run_cell(workload, 3, 0.2, False, device="cpu")
 
 
 def canned_records():

@@ -1,7 +1,7 @@
 """No module that a run loads has the top-level name ``jax``, ``jaxlib``,
 ``flax`` or ``multithreading_string_matching_tpu`` (names compare whole:
-the program's own name begins with the last), and the reference loads
-nothing of the program either."""
+the program's own name begins with the last), and no reference or
+generator loads anything of the program either."""
 
 import ast
 import json
@@ -47,18 +47,34 @@ def test_yardstick_sources_import_nothing_of_the_program():
         assert PROGRAM not in imported_tops(BENCH_DIR / name)
 
 
-def test_reference_loads_nothing_of_the_program():
+def test_references_and_generators_load_nothing_of_the_program():
+    """Every module under ``reference/`` and ``gen/`` imported, and each
+    cell's generator and reference, found by name, run on a small capture."""
     got = python(
-        "import json, sys\n"
-        "from gpubench.gen.synth import synth_udp_pcap\n"
-        "from gpubench.reference import capture_counts\n"
-        "import tempfile, os\n"
-        "d = tempfile.mkdtemp(); p = os.path.join(d, 'c.pcap')\n"
-        "synth_udp_pcap(p, 50, payload_len=64, patterns=[b'ab'], plant_rate=0.5, seed=1)\n"
-        "c, n = capture_counts(p, [b'ab'])\n"
-        "os.remove(p); os.rmdir(d)\n"
-        "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n")
-    assert not set(got) & (FORBIDDEN | {PROGRAM})
+        "import importlib, json, pathlib, sys, tempfile\n"
+        "from gpubench import registry\n"
+        "from gpubench.gen.inputs import make_inputs\n"
+        "root = registry.BENCH_DIR.parent\n"
+        "for sub in ('reference', 'gen'):\n"
+        "    for f in sorted((registry.BENCH_DIR / sub).glob('*.py')):\n"
+        "        importlib.import_module('gpubench.' + sub + ('' if f.stem == '__init__' else '.' + f.stem))\n"
+        "bench = registry.load_benchmark(root)\n"
+        "ran = []\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    for k, w in enumerate(bench['workloads']):\n"
+        "        cfg = registry.config(bench, w['config'], root)\n"
+        "        mix = registry.traffic(w['traffic'])\n"
+        "        mix['capture'].update(packets=50)\n"
+        "        work = pathlib.Path(d) / str(k)\n"
+        "        work.mkdir()\n"
+        "        inputs = make_inputs(cfg, mix, 1, root, work)\n"
+        "        ref = registry.reference(cfg.get('reference', registry.DEFAULT_REFERENCE))\n"
+        "        counts, n = ref.capture_counts(inputs.captures[0], inputs.patterns, inputs.mode, 'cpu')\n"
+        "        ran.append(n == inputs.payload_bytes[0])\n"
+        "print(json.dumps({'ran': ran,\n"
+        "                  'tops': sorted({m.split('.')[0] for m in sys.modules})}))\n")
+    assert got["ran"] and all(got["ran"])
+    assert not set(got["tops"]) & (FORBIDDEN | {PROGRAM})
 
 
 @pytest.mark.parametrize("workload,over", [

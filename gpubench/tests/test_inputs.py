@@ -1,7 +1,9 @@
 """The generator writes what its traffic mix states, the same bytes for the
 same seed, and captures that the program's own decoder reads as the
-reference does."""
+reference does; the ``udp`` generator, reached by name, writes the bytes
+that ``synth_udp_pcap`` wrote when it was called directly."""
 
+import hashlib
 import json
 import pathlib
 
@@ -22,6 +24,19 @@ def config(name="ref_strings"):
     return json.loads((ROOT / "gpubench" / "configs" / f"{name}.json").read_text())
 
 
+# The keys of a mix that make_inputs passed to synth_udp_pcap when it called
+# it directly, before generators were found by name.
+DIRECT_KEYS = ("payload_len_jitter", "content", "lead_nul", "plant_rate", "ihl6_rate")
+SHAPES = [("stream_mega", 300), ("stream_vbig", 2000)]
+IDENTITY_SEEDS = [7, 2**31 + 3, 2**40 + 11]
+# sha256 and payload bytes of capture 0 at seed 2**31 + 3, as written by the
+# harness before generators were found by name.
+PINNED = {
+    "stream_mega": ("e79c3700944f4e190e1f55ce194847ed8568f473ac47edcff74fe149f4bbcc3d", 308280),
+    "stream_vbig": ("01799212aff0d95a2fd37879bf4582ff9a1f2de3294319f853d286cba5a29a91", 193913),
+}
+
+
 def small(traffic, tmp_path, seed, packets=2000):
     mix = registry.traffic(traffic)
     mix["capture"].update(packets=packets)
@@ -35,6 +50,26 @@ def test_same_seed_same_bytes(tmp_path, traffic):
     b = small(traffic, tmp_path / "b", 2**31 + 3)[1].captures[0]
     c = small(traffic, tmp_path / "c", 2**31 + 4)[1].captures[0]
     assert a.read_bytes() == b.read_bytes() != c.read_bytes()
+
+
+@pytest.mark.parametrize("seed", IDENTITY_SEEDS)
+@pytest.mark.parametrize("traffic,packets", SHAPES)
+def test_udp_generator_writes_what_synth_udp_pcap_wrote(tmp_path, traffic, packets, seed):
+    mix, inputs = small(traffic, tmp_path / "named", seed, packets)
+    cap = mix["capture"]
+    assert "generator" not in cap
+    weights = entry_weights(inputs.patterns, cap.get("plant_weights"))
+    direct = tmp_path / "direct.pcap"
+    nbytes = synth_udp_pcap(direct, int(cap["packets"]), payload_len=int(cap["payload_len"]),
+                            patterns=inputs.patterns, plant_weights=weights, seed=capture_seed(seed, 0),
+                            **{k: cap[k] for k in DIRECT_KEYS if k in cap})
+    named = tmp_path / "named.pcap"
+    assert registry.generator("udp").write(named, cap, inputs.patterns, weights,
+                                           capture_seed(seed, 0)) == nbytes
+    assert inputs.captures[0].read_bytes() == direct.read_bytes() == named.read_bytes()
+    assert inputs.payload_bytes == [nbytes]
+    if seed == 2**31 + 3:
+        assert (hashlib.sha256(direct.read_bytes()).hexdigest(), nbytes) == PINNED[traffic]
 
 
 @pytest.fixture(params=TRAFFIC)

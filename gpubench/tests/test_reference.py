@@ -1,7 +1,10 @@
 """The plain reference against a brute-force ``bytes.find`` count over small
 generated captures of every traffic mix, and its payload rule against the
-program's decode on captures with undecodable packets."""
+program's decode on captures with undecodable packets; the ``udp_packets``
+reference, reached by name, returns the counts and bytes that the harness
+counted before references were found by name."""
 
+import hashlib
 import json
 import pathlib
 import struct
@@ -9,7 +12,9 @@ import struct
 import numpy as np
 import pytest
 
-from gpubench.reference import capture_counts, count_payloads, udp_payloads
+from gpubench import registry
+from gpubench.reference import count_payloads, udp_payloads
+from gpubench.reference.udp_packets import capture_counts
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 
@@ -61,6 +66,41 @@ def test_counts_equal_brute_force(tmp_path, traffic, packets, seed):
     assert nbytes == total
     assert counts.sum() > 0
     np.testing.assert_array_equal(counts, want)
+
+
+# sha256 of the int64 counts, the payload bytes and the counts' sum on capture
+# 0 of each shape, as the harness counted them before references were found
+# by name.
+PINNED = {
+    ("stream_mega", 7): ("80d7db6843cf5ea187056b1eb091df43fe74ebb697ed7a84a893fefddc9a949f", 311003, 37),
+    ("stream_mega", 2**31 + 3): ("4f1b0207420a1c2643edcea6330c7de800e30520fe8b5fcdb6a59811e2bdd026",
+                                 308280, 33),
+    ("stream_mega", 2**40 + 11): ("230144131e0e6d1ad1e39ceae98f162dae6c3f60b00ed465bf2ea1741cc96255",
+                                  306253, 40),
+    ("stream_vbig", 7): ("94d26c2932773f5be53d26a7d7553bbe2cf3c03758a457576ff55a5a61dab5f5", 194046, 2081),
+    ("stream_vbig", 2**31 + 3): ("713634c41efa91f5700b5e240396005b34e7da48825125288dcb4fb636aefb8b",
+                                 193913, 2103),
+    ("stream_vbig", 2**40 + 11): ("45db84ca1d20f973260febbca504f83dc121f42b06df9561b634c1217378c63e",
+                                  192613, 2102),
+}
+
+
+@pytest.mark.parametrize("seed", [7, 2**31 + 3, 2**40 + 11])
+@pytest.mark.parametrize("traffic,packets", [("stream_mega", 300), ("stream_vbig", 2000)])
+def test_udp_packets_returns_the_counts_it_returned_before(tmp_path, traffic, packets, seed):
+    pats, cap, total = small_mix(traffic, tmp_path, seed, packets)
+    counts, nbytes = registry.reference("udp_packets").capture_counts(cap, pats, "udp", "cpu")
+    payloads = udp_payloads(cap)
+    np.testing.assert_array_equal(counts, count_payloads(payloads, pats))
+    assert nbytes == sum(len(p) for p in payloads) == total
+    digest = hashlib.sha256(np.asarray(counts, dtype="<i8").tobytes()).hexdigest()
+    assert (digest, nbytes, int(counts.sum())) == PINNED[traffic, seed]
+
+
+def test_udp_packets_reads_udp_only(tmp_path):
+    _, cap, _ = small_mix("stream_mega", tmp_path, 1, 10)
+    with pytest.raises(ValueError, match="UDP payloads only"):
+        capture_counts(cap, [b"ab"], "tcp")
 
 
 def test_overlaps_edges_and_duplicates():
