@@ -824,44 +824,22 @@ def _match_flows(a, matcher, timer, shard_axis: str) -> int:
     return 0
 
 
-def _flow_stream_engine(a, matcher) -> str:
-    """The JAX CLI's choice: an explicit ``window`` anywhere, ``pallas`` or
-    ``auto`` take the window rounds on an accelerator, the rest the AC scan
-    (the CPU's default)."""
-    if a.engine == "window":
-        return "window"
-    if (a.engine in ("pallas", "auto") and matcher.device.type == "cuda"
-            and matcher._resolve_engine(None) in ("pallas", "window")):
-        return "window"
-    return "ac"
-
-
-def _flow_chunks(paths, flow_batch: int, host_workers: int):
-    """``iter_pcap`` chunks of every path in turn; with ``host_workers`` the
-    next chunk parses on a background thread (in order: reassembly needs
-    capture order)."""
-    from multithreading_string_matching_tpu_torch.io.pcap import iter_pcap
-
-    for path in paths:
-        chunks = iter_pcap(path, batch_packets=flow_batch)
-        if host_workers:
-            from multithreading_string_matching_tpu_torch.parallel.host import prefetch_iter
-
-            chunks = prefetch_iter(chunks, depth=max(2, host_workers))
-        yield from chunks
-
-
 def _match_flow_stream(a, matcher, timer) -> int:
-    """``--flows --stream``: iter_pcap batches into the flow monitor, with
-    the rules file reloaded on SIGHUP (``--pcap -`` behind a tcpdump pipe
-    is the daemon shape)."""
+    """``--flows --stream``: the flow monitor's pass
+    (parallel/flow_stream.count_pcap_flows_streamed), with the rules file
+    reloaded on SIGHUP (``--pcap -`` behind a tcpdump pipe is the daemon
+    shape)."""
     import signal
 
     from multithreading_string_matching_tpu_torch.io.flows import key_tuple_bytes
-    from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher
+    from multithreading_string_matching_tpu_torch.parallel.flow_stream import (
+        FlowStreamMatcher,
+        count_pcap_flows_streamed,
+        flow_stream_engine,
+    )
     from multithreading_string_matching_tpu_torch.utils.report import format_report
 
-    fse = _flow_stream_engine(a, matcher)
+    fse = flow_stream_engine(matcher)
     if a.offsets:
         # The find pass reads the per-flow byte tail that only the window
         # layout carries; counts are the same on either engine.
@@ -888,7 +866,7 @@ def _match_flow_stream(a, matcher, timer) -> int:
     hits = [] if a.offsets else None
     key_name = functools.lru_cache(maxsize=1 << 16)(key_tuple_bytes)
 
-    def emit_hits():
+    def emit_hits(fs):
         if hits is None:
             return
         drained = fs.drain_offsets()
@@ -901,41 +879,42 @@ def _match_flow_stream(a, matcher, timer) -> int:
             print(f"flow {src}:{sp}->{dst}:{dp} @ {o}: {uniq[u].decode('latin-1')}")
 
     reloads = 0
+
+    def reload_rules(fs):
+        nonlocal matcher, reloads
+        if not reload_flag["hup"]:
+            return
+        reload_flag["hup"] = False
+        try:
+            new_matcher = _build(a.patterns, engine=a.engine, nocase=a.nocase,
+                                 syntax=a.pattern_syntax, bucketed=a.bucketed)
+            prev = fs.reload(new_matcher)
+        except Exception as e:  # the daemon keeps its old rules
+            print(f"# rules reload failed, keeping old set: {e}", file=sys.stderr)
+            return
+        reloads += 1
+        if a.json:
+            import json
+
+            # The final blob covers the last epoch only.
+            print(json.dumps({
+                "reload": reloads,
+                "patterns": [pt.decode("latin-1") for pt in matcher.patterns],
+                "counts": prev.tolist(),
+            }), file=sys.stderr)
+        else:
+            print("# rules reloaded; counts under the previous set:", file=sys.stderr)
+            print(format_report(matcher.patterns, prev, None), file=sys.stderr)
+        matcher = new_matcher
+
     try:
         with timer.phase("scan"):
-            for chunk in _flow_chunks(a.pcap, flow_batch, a.host_workers):
-                if reload_flag["hup"]:
-                    reload_flag["hup"] = False
-                    try:
-                        new_matcher = _build(a.patterns, engine=a.engine, nocase=a.nocase,
-                                             syntax=a.pattern_syntax, bucketed=a.bucketed)
-                        prev = fs.reload(new_matcher)
-                    except Exception as e:  # the daemon keeps its old rules
-                        print(f"# rules reload failed, keeping old set: {e}", file=sys.stderr)
-                    else:
-                        reloads += 1
-                        if a.json:
-                            import json
-
-                            # The final blob covers the last epoch only.
-                            print(json.dumps({
-                                "reload": reloads,
-                                "patterns": [pt.decode("latin-1") for pt in matcher.patterns],
-                                "counts": prev.tolist(),
-                            }), file=sys.stderr)
-                        else:
-                            print("# rules reloaded; counts under the previous set:",
-                                  file=sys.stderr)
-                            print(format_report(matcher.patterns, prev, None), file=sys.stderr)
-                        matcher = new_matcher
-                fs.feed_pcap_slice(chunk)
-                emit_hits()
-            fs.flush()
-            emit_hits()
+            counts = count_pcap_flows_streamed(fs, a.pcap, batch_packets=flow_batch,
+                                               host_workers=a.host_workers,
+                                               before_chunk=reload_rules, after_feed=emit_hits)
     finally:
         if old_hup is not None:
             signal.signal(signal.SIGHUP, old_hup)
-    counts = fs.counts()
     if a.json:
         ex = _execution_blob(matcher, actual=fse)
         blob = {

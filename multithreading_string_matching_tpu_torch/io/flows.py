@@ -10,8 +10,10 @@ reassembled streams, and a match across a segment boundary counts like the
 concatenated-flow oracle's.
 
 The parse is the honest one (``decode_headers(strict=True)``: real IHL,
-real TCP data offset, protocol checked).  Truncated captures contribute
-only their captured bytes.  :func:`count_flows_chunked` scans the streams
+real TCP data offset, protocol checked), and a payload ends at the IP
+total length, so an Ethernet trailer never joins a stream (the JAX
+package runs to the wire length).  Truncated captures contribute only
+their captured bytes.  :func:`count_flows_chunked` scans the streams
 in fixed-width chunks with carried DFA states (the AC engine).
 """
 
@@ -123,7 +125,16 @@ def flow_keys(pcap: PcapFile, mode: str = "tcp", *, ipv6: bool = False,
     ``ipv6=True``: 37-byte keys ``ver|src16|dst16|sport|dport`` for both
     families in one space (v4 addresses left-aligned, the version byte
     keeps the families apart).  ``vlan=True`` skips up to two stacked
-    802.1Q/802.1ad tags; the VLAN ID is not part of the key."""
+    802.1Q/802.1ad tags; the VLAN ID is not part of the key.
+
+    A payload ends where its IP datagram ends (RFC 791's total length; for
+    IPv6 the fixed header and its payload length), clipped to the wire
+    length and the captured bytes: the zeros that pad a short frame to the
+    Ethernet minimum are no stream bytes.  A length field that ends inside
+    the IP and TCP headers (0 in captures of TSO hosts, IPv6 jumbograms)
+    is ignored and the payload runs to the wire length.  The per-packet
+    modes keep the reference program's wire-length rule
+    (``decode_headers``)."""
     valid, off, ln = decode_headers(pcap, mode, strict=True, ipv6=ipv6, vlan=vlan)
     buf, base, cap = pcap.buf, pcap.offsets, pcap.caplens
     n = base.shape[0]
@@ -132,6 +143,16 @@ def flow_keys(pcap: PcapFile, mode: str = "tcp", *, ipv6: bool = False,
     # ports at l2+iplen+4.
     addr_end = np.where(is6, 40, 20)
     valid = valid & (cap >= l2 + addr_end) & (cap >= l2 + iplen + 4)
+    if len(buf):
+        # The length field (v4 bytes 2-3, v6 bytes 4-5) lies inside the
+        # captured addresses of every valid row.
+        at = base + l2 + np.where(is6, 4, 2)
+        hi = buf[np.minimum(at, len(buf) - 1)].astype(np.int64)
+        lo = buf[np.minimum(at + 1, len(buf) - 1)].astype(np.int64)
+        ip_end = l2 + np.where(is6, 40, 0) + ((hi << 8) | lo)
+        # A length that ends inside the headers (0 from a TSO host, an
+        # IPv6 jumbogram) is not a datagram's: the wire length stands.
+        ln = np.where(ip_end >= off, np.minimum(ln, ip_end - off), ln)
     avail = np.where(valid, np.clip(cap - off, 0, ln), 0)
     if not ipv6:
         keys = np.zeros((n, V4_KEY_BYTES), np.uint8)

@@ -51,11 +51,23 @@ read the JAX package's checkpoint file (the flow table, the tails or DFA
 states, the pending and reorder state), so a checkpoint of either package
 resumes in the other; the AC states are numbered alike and are checked on
 load.
+
+:func:`count_pcap_flows_streamed` is the flow monitor's whole pass, what
+``match --flows --stream`` runs: captures read in ``iter_pcap`` chunks,
+fed, flushed and counted.  Under ``torch.profiler`` it opens the spans of
+``utils.timing.span``: ``msm.stream`` (one call), ``msm.ingest`` (each read
+of the chunk iterator), ``msm.flow.feed`` (each :meth:`feed_pcap_slice`,
+rounds included), ``msm.flow.layout`` (a round: tails, padded lanes,
+sub-lanes, fold, the find pass with ``collect_offsets``), inside it
+``msm.flow.dispatch`` (a round's or a chunk's copies and launch) and
+``msm.drain`` (device counts or states fetched to the host).
+:data:`FLOWS` counts the rounds' stream and tile bytes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -68,6 +80,13 @@ from multithreading_string_matching_tpu_torch.io.flows import (
 )
 from multithreading_string_matching_tpu_torch.ops.scan import check_states, count_matches_ac
 from multithreading_string_matching_tpu_torch.ops.window import StreamHalo, window_stream_chunk
+from multithreading_string_matching_tpu_torch.utils.timing import span
+
+# Since import: stream bytes the scan rounds took (``real_bytes``) and bytes
+# of the tiles handed to the matcher's device (``tile_bytes``: halos,
+# padding and padding lanes included); their ratio is the rounds' lane
+# fill.
+FLOWS: Dict[str, int] = {"real_bytes": 0, "tile_bytes": 0}
 
 
 def _pow2(x: int, floor: int) -> int:
@@ -255,7 +274,8 @@ class FlowStreamMatcher:
 
     def _scan(self) -> None:
         had_bytes = self._pending_bytes > 0
-        self._scan_impl()
+        with span("msm.flow.layout"):
+            self._scan_impl()
         if had_bytes:
             self._round += 1
             self._apply_eviction()
@@ -371,6 +391,7 @@ class FlowStreamMatcher:
         F = -(-F // self._n_dev) * self._n_dev
         lens_arr = np.array([len(self._pending[k]) for k in flows], np.int64)
         longest = int(lens_arr.max())
+        FLOWS["real_bytes"] += int(lens_arr.sum())
         long_q = -(-longest // self.width) * self.width
         rel_all = np.zeros(F, np.int64)
         rel_all[: len(flows)] = lens_arr
@@ -446,13 +467,17 @@ class FlowStreamMatcher:
                 for i, k in enumerate(flows):
                     seg = self._pending[k][c : c + self.width]
                     tile[i, : len(seg)] = np.frombuffer(bytes(seg), np.uint8)
-            counts = step(tile, c)
+            FLOWS["tile_bytes"] += tile.nbytes
+            with span("msm.flow.dispatch"):
+                counts = step(tile, c)
             if device_acc:
                 round_counts = counts if round_counts is None else round_counts + counts
             else:
-                self._counts += counts.cpu().numpy().astype(np.int64)
+                with span("msm.drain"):
+                    self._counts += counts.cpu().numpy().astype(np.int64)
         if round_counts is not None:
-            self._counts += round_counts.cpu().numpy().astype(np.int64)
+            with span("msm.drain"):
+                self._counts += round_counts.cpu().numpy().astype(np.int64)
 
     def _ac_round(self, flows, F: int, rel_all, longest: int, long_q: int) -> None:
         """One ``ac`` round: the chunk loop with each lane's DFA state carried
@@ -485,7 +510,8 @@ class FlowStreamMatcher:
             return counts
 
         self._chunk_loop(flows, F, longest, long_q, step)
-        final = states_v.cpu().numpy()
+        with span("msm.drain"):
+            final = states_v.cpu().numpy()
         for i, k in enumerate(flows):
             self._states[k] = int(final[i])
         self._pending.clear()
@@ -545,22 +571,26 @@ class FlowStreamMatcher:
             # sub-lane tile (pow2 nch, repeated halos) can be over twice
             # the flat round.
             self._round_positions = x2.shape[0] * x2.shape[1]
-        if self.sharded:
-            from multithreading_string_matching_tpu_torch.parallel.mesh import (
-                count_flow_round_sharded,
-            )
+            FLOWS["tile_bytes"] += x2.nbytes
+        else:
+            FLOWS["tile_bytes"] += buf.nbytes + halo_b.nbytes
+        with span("msm.flow.dispatch"):
+            if self.sharded:
+                from multithreading_string_matching_tpu_torch.parallel.mesh import (
+                    count_flow_round_sharded,
+                )
 
-            return count_flow_round_sharded(self.matcher, x2, eff2, ms2, self.mesh,
-                                            engine="pallas" if use_halo else "window")
-        if use_halo:
-            return self.matcher.halo_kernels.count_tile_halo(
-                self._device_tile(x2), self._device_tile(eff2), self._device_tile(ms2))
-        counts, _ = window_stream_chunk(
-            self.matcher.window, self._device_tile(fold(buf)), rel,
-            StreamHalo(self._device_tile(fold(halo_b)), self._device_tile(fill_v)),
-            expand_duplicates=False,
-        )
-        return counts
+                return count_flow_round_sharded(self.matcher, x2, eff2, ms2, self.mesh,
+                                                engine="pallas" if use_halo else "window")
+            if use_halo:
+                return self.matcher.halo_kernels.count_tile_halo(
+                    self._device_tile(x2), self._device_tile(eff2), self._device_tile(ms2))
+            counts, _ = window_stream_chunk(
+                self.matcher.window, self._device_tile(fold(buf)), rel,
+                StreamHalo(self._device_tile(fold(halo_b)), self._device_tile(fill_v)),
+                expand_duplicates=False,
+            )
+            return counts
 
     def _acc_device(self, counts: torch.Tensor, *, positions: int) -> None:
         self._dev_counts = counts if self._dev_counts is None else self._dev_counts + counts
@@ -571,7 +601,8 @@ class FlowStreamMatcher:
     def _drain_device(self) -> None:
         if self._dev_counts is None:
             return
-        c = self._dev_counts.cpu().numpy().astype(np.int64)
+        with span("msm.drain"):
+            c = self._dev_counts.cpu().numpy().astype(np.int64)
         self._counts += c[self.matcher.window.dup_map]
         self._dev_counts = None
         self._dev_pos = 0
@@ -822,3 +853,71 @@ class FlowStreamMatcher:
                 self._pending_bytes -= (
                     sum(len(s) for _, s in b) if isinstance(b, list) else len(b)
                 )
+
+
+def flow_stream_engine(matcher) -> str:
+    """The engine ``match --flows --stream`` gives the flow monitor (the JAX
+    CLI's choice): an explicit ``window`` matcher anywhere, a ``pallas`` or
+    ``auto`` one that resolves to the window family on the card take the
+    ``window`` rounds; the rest the AC scan (the CPU's default)."""
+    if matcher.engine == "window":
+        return "window"
+    if (matcher.engine in ("pallas", "auto") and matcher.device.type == "cuda"
+            and matcher._resolve_engine(None) in ("pallas", "window")):
+        return "window"
+    return "ac"
+
+
+def _capture_chunks(paths, batch_packets: int, host_workers: int = 0) -> Iterator:
+    """``iter_pcap`` chunks of every path in turn; with ``host_workers`` the
+    next chunk parses on a background thread (in order: reassembly needs
+    capture order)."""
+    # Looked up at each call, so that a caller's replacement of
+    # ``io.pcap.iter_pcap`` (a pipe's reader in tests) is the one used.
+    from multithreading_string_matching_tpu_torch.io.pcap import iter_pcap
+
+    for path in paths:
+        chunks = iter_pcap(path, batch_packets=batch_packets)
+        if host_workers:
+            from multithreading_string_matching_tpu_torch.parallel.host import prefetch_iter
+
+            chunks = prefetch_iter(chunks, depth=max(2, host_workers))
+        yield from chunks
+
+
+def count_pcap_flows_streamed(
+    fs: FlowStreamMatcher,
+    paths,
+    *,
+    batch_packets: int = 8192,
+    host_workers: int = 0,
+    before_chunk: Optional[Callable[[FlowStreamMatcher], None]] = None,
+    after_feed: Optional[Callable[[FlowStreamMatcher], None]] = None,
+) -> np.ndarray:
+    """The flow monitor ``fs`` over whole captures: int64 counts over the
+    original pattern list of every flow's reassembled stream.
+
+    ``paths`` (one path or a list, ``-`` for standard input) stream in
+    ``iter_pcap`` chunks of ``batch_packets`` into ``fs``; after the last
+    chunk the pending bytes are flushed.  ``before_chunk(fs)`` runs before
+    each chunk's feed (a rules reload), ``after_feed(fs)`` after each feed
+    and after the flush (offsets drained as their rounds finish)."""
+    with span("msm.stream"):
+        if isinstance(paths, (str, bytes, os.PathLike)):
+            paths = [paths]
+        chunks = _capture_chunks(paths, batch_packets, host_workers)
+        while True:
+            with span("msm.ingest"):
+                chunk = next(chunks, None)
+            if chunk is None:
+                break
+            if before_chunk is not None:
+                before_chunk(fs)
+            with span("msm.flow.feed"):
+                fs.feed_pcap_slice(chunk)
+            if after_feed is not None:
+                after_feed(fs)
+        fs.flush()
+        if after_feed is not None:
+            after_feed(fs)
+        return fs.counts()

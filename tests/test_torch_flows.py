@@ -363,3 +363,28 @@ def test_compile_timeout_raises_naming_the_command(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+ .* timed out"):
         _build.compile_to(["g++", "-O2", "-shared", "-fPIC"], [src], tmp_path / "libslow.so")
     assert not list(tmp_path.glob(".libslow*"))
+
+
+@pytest.mark.parametrize("trailer", [True, False], ids=["padded", "unpadded"])
+def test_a_frame_trailer_is_no_stream_byte(tmp_path, trailer):
+    """A flow payload ends at the IP total length: the zeros that pad a
+    short frame to 60 bytes stay out of the port's stream.  The JAX package
+    runs the payload to the wire length (a difference on purpose); without
+    a trailer the two are equal."""
+    key = ("10.1.0.1", "10.1.0.2", 5555, 80)
+    frames = [pt_synth._eth_ipv4_tcp(b"SIG", key, 100), pt_synth._eth_ipv4_tcp(b"NAL", key, 103)]
+    if trailer:
+        frames = [fr + bytes(60 - len(fr)) for fr in frames]
+    path = tmp_path / "trailer.pcap"
+    with open(path, "wb") as f:
+        f.write(pp.classic_global_header())
+        for i, fr in enumerate(frames):
+            f.write(struct.pack("<IIII", i, 0, len(fr), len(fr)))
+            f.write(fr)
+    g = pf.extract_flows(pp.read_pcap(path), "tcp")
+    w = jf.extract_flows(jp.read_pcap(path), "tcp")
+    assert g.stream(0) == b"SIGNAL"
+    if trailer:
+        assert w.stream(0) == b"SIG\x00\x00\x00NAL\x00\x00\x00"
+    else:
+        _assert_batches_equal(g, w)
