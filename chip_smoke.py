@@ -74,8 +74,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    equal one-shot ``extract_flows`` + ``Matcher.count`` on the card, the
    plain version's stream on the card and a pure-Python count over every
    reassembled stream; the per-packet count is lower.  Also a reordered,
-   retransmitting capture, a NUL + nocase case, a forced chunk-loop round
-   and a forced drain, and the halo kernel against its plain version on
+   retransmitting capture, a NUL + nocase case, rounds split over launches
+   by a forced budget and a forced drain, and the halo kernel against its plain version on
    random lanes.  Times: stream rate (median of 3), where a stream's wall
    time goes, the halo kernel on the largest round tile against the plain
    version, and the ``match --flows [--stream]`` wall times.
@@ -1128,7 +1128,7 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct):
     print(f"flow path: stream = one-shot = plain stream ({plain_wall:.3f} s) = pure Python "
           f"({py_s:.3f} s): {int(counts.sum())} matches; per packet {int(per_packet.sum())}")
 
-    # -- reorder, NUL + nocase, the chunk loop, a forced drain ------------
+    # -- reorder, NUL + nocase, the budget split, a forced drain ----------
     rflows, rp = reorder_capture(patterns)
     before = cw.LAUNCHES["window_count_halo"]
     rcounts = reorder_stream(matcher, rp)
@@ -1162,7 +1162,7 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct):
         ref_fs.feed_pcap_slice(sl)
     ref_fs.flush()
     old_budget = FlowStreamMatcher.ROUND_BUDGET_BYTES
-    FlowStreamMatcher.ROUND_BUDGET_BYTES = 1
+    FlowStreamMatcher.ROUND_BUDGET_BYTES = 1 << 20  # ~500 rows a launch
     loop_fs = FlowStreamMatcher(matcher, "tcp", engine="window")
     before = cw.LAUNCHES["window_count_halo"]
     for sl in head:
@@ -1184,12 +1184,12 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct):
     drain_fs.flush()
     check(cw.LAUNCHES["window_count_halo"] - before >= drain_fs._round > 0,
           "the drained stream did not launch the halo kernel every round")
-    check(loop_launches > loop_fs._round, f"the chunk loop launched {loop_launches} kernels")
+    check(loop_launches > loop_fs._round, f"the budget split launched {loop_launches} kernels")
     check(np.array_equal(loop_fs.counts(), ref_fs.counts())
           and np.array_equal(drain_fs.counts(), ref_fs.counts()),
-          "chunk-loop or drained counts differ")
-    print(f"chunk loop ({loop_launches} launches in {loop_fs._round} rounds) and forced drain: "
-          f"{int(ref_fs.counts().sum())} matches, equal")
+          "budget-split or drained counts differ")
+    print(f"budget split ({loop_launches} launches in {loop_fs._round} rounds) and forced "
+          f"drain: {int(ref_fs.counts().sum())} matches, equal")
 
     # -- times --------------------------------------------------------------
     walls = []
@@ -1206,7 +1206,7 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct):
     # their end) against the rest, which is the host feed.
     split = {"round": 0.0, "scan": 0.0}
     tfs = FlowStreamMatcher(matcher, "tcp", engine="window")
-    scan_impl, window_round = tfs._scan_impl, tfs._window_round
+    scan_impl, ragged_round = tfs._scan_impl, tfs._ragged_round
 
     def timed(key, fn):
         def wrapper(*a, **k):
@@ -1217,7 +1217,7 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct):
             return out
         return wrapper
 
-    tfs._scan_impl, tfs._window_round = timed("scan", scan_impl), timed("round", window_round)
+    tfs._scan_impl, tfs._ragged_round = timed("scan", scan_impl), timed("round", ragged_round)
     t0 = time.perf_counter()
     for sl in slices:
         tfs.feed_pcap_slice(sl)
@@ -1225,8 +1225,8 @@ def flow_phase(dev, card: str, patterns, pat_file, cw, ct):
     tfs.counts()
     total = time.perf_counter() - t0
     print(f"flow stream split: total {total:.4f} s = feed {total - split['scan']:.4f} s "
-          f"+ scan {split['scan']:.4f} s (round buffers {split['scan'] - split['round']:.4f} s, "
-          f"sub-lane re-layout + copy + kernel {split['round']:.4f} s) [{card}]")
+          f"+ scan {split['scan']:.4f} s (tails and halos {split['scan'] - split['round']:.4f} s, "
+          f"ragged layout + copy + kernel {split['round']:.4f} s) [{card}]")
 
     x, eff, ms = largest["args"]
     words, masks, lens = kern.words, kern.masks, kern.lens

@@ -28,17 +28,18 @@ pending bytes are scanned first.
 
 On the card an ``ac`` round is one ``ac_scan`` launch per ``width``-byte
 chunk; a ``window`` round is one launch of the halo kernel
-(``ops/cuda_window.window_count_halo``) over the round re-laid as
-fixed-width sub-lanes, and the matcher's ``window`` engine takes the plain
-version on its device.  Counts stay on the device as int32 across rounds
-and drain to host int64 before they can wrap.
+(``ops/cuda_window.window_count_halo``) over the round laid out as ragged
+sub-lanes, each flow taking only the ``ceil(bytes / width)`` rows its own
+bytes need (more launches only past ``ROUND_BUDGET_BYTES``).  The matcher's
+``window`` engine takes the plain form over the flat padded round on its
+device.  Counts stay on the device as int32 across rounds and drain to
+host int64 before they can wrap.
 
 ``sharded=True`` splits the flow lanes over a mesh (``mesh=``, default:
 every device of the matcher's type): ``ac`` chunks through
 ``parallel/mesh.count_chunk_sharded`` (each shard scans its lanes from
-their states), a single-dispatch ``window`` round's sub-lanes through
-``parallel/mesh.count_flow_round_sharded``; the window chunk loop stays on
-the matcher's device, as in the JAX package.
+their states), a ``window`` round's ragged sub-lanes through
+``parallel/mesh.count_flow_round_sharded``.
 
 ``collect_offsets=True`` adds a find pass before each round
 (``Matcher.find_matches`` over ``[tail | new bytes]`` rows, the
@@ -57,15 +58,16 @@ load.
 fed, flushed and counted.  Under ``torch.profiler`` it opens the spans of
 ``utils.timing.span``: ``msm.stream`` (one call), ``msm.ingest`` (each read
 of the chunk iterator), ``msm.flow.feed`` (each :meth:`feed_pcap_slice`,
-rounds included), ``msm.flow.layout`` (a round: tails, padded lanes,
-sub-lanes, fold, the find pass with ``collect_offsets``), inside it
-``msm.flow.dispatch`` (a round's or a chunk's copies and launch) and
+rounds included), ``msm.flow.layout`` (a round: tails, sub-lanes or padded
+lanes, fold, the find pass with ``collect_offsets``), inside it
+``msm.flow.dispatch`` (a launch's or a chunk's copies and launch) and
 ``msm.drain`` (device counts or states fetched to the host).
 :data:`FLOWS` counts the rounds' stream and tile bytes.
 """
 
 from __future__ import annotations
 
+import bisect
 import os
 from typing import Callable, Dict, Iterator, Optional
 
@@ -94,9 +96,10 @@ def _pow2(x: int, floor: int) -> int:
 
 
 class FlowStreamMatcher:
-    # One round's padded host buffer budget; past it the round falls back
-    # to bounded per-chunk tiles (one huge flow padding every lane).
-    # Class-level so tests can lower it.
+    # One launch's host tile budget: a ragged round past it splits its rows
+    # over several launches; a padded round (the ``ac`` engine, the plain
+    # ``window`` one) falls back to bounded per-chunk tiles.  Class-level so
+    # tests can lower it.
     ROUND_BUDGET_BYTES = 64 << 20
 
     def __init__(
@@ -178,7 +181,6 @@ class FlowStreamMatcher:
         # (under 2^30 scanned positions between drains).
         self._dev_counts: Optional[torch.Tensor] = None
         self._dev_pos = 0
-        self._round_positions = 0
         self.packets_seen = 0        # valid flow segments fed
         self.bytes_seen = 0
         # Eviction runs after each round, on flows whose pending bytes were
@@ -385,64 +387,80 @@ class FlowStreamMatcher:
             # Before any tail or pending change: the find pass reads the
             # tails from before the round next to the pending bytes.
             self._collect_round_offsets(flows)
-        F = _pow2(len(flows), self.min_lanes)
-        # Sharded rounds split the lanes over the mesh: a device-count
-        # multiple (a non-pow2 min_lanes or device count would not divide).
-        F = -(-F // self._n_dev) * self._n_dev
-        lens_arr = np.array([len(self._pending[k]) for k in flows], np.int64)
-        longest = int(lens_arr.max())
-        FLOWS["real_bytes"] += int(lens_arr.sum())
-        long_q = -(-longest // self.width) * self.width
-        rel_all = np.zeros(F, np.int64)
-        rel_all[: len(flows)] = lens_arr
+        lens = np.array([len(self._pending[k]) for k in flows], np.int64)
+        FLOWS["real_bytes"] += int(lens.sum())
         if self.engine == "ac":
-            self._ac_round(flows, F, rel_all, longest, long_q)
+            self._ac_round(flows, lens)
             return
         H = max(int(self.matcher.window.max_len) - 1, 1)
+        if self._use_halo_kernel() or self.sharded:
+            self._ragged_round(flows, lens, H)
+        else:
+            self._flat_round(flows, lens, H)
+        self._store_tails(flows, H)
+
+    def _lanes(self, lens):
+        """The padded lane geometry of the chunk-loop rounds: ``(F, rel_all,
+        longest, long_q)``, ``F`` a power of two of at least ``min_lanes``
+        and a multiple of the device count (sharded lanes split evenly)."""
+        F = _pow2(len(lens), self.min_lanes)
+        F = -(-F // self._n_dev) * self._n_dev
+        rel_all = np.zeros(F, np.int64)
+        rel_all[: len(lens)] = lens
+        longest = int(lens.max())
+        return F, rel_all, longest, -(-longest // self.width) * self.width
+
+    def _halos(self, flows, H: int, F: int):
+        """``([F, H] uint8 halos, int32[F] fills)``: each flow's stored tail
+        right-aligned, so the fabricated zeros are the first ``H - fill``
+        columns."""
         halo_b = np.zeros((F, H), np.uint8)
         fill_v = np.zeros(F, np.int32)
         for i, k in enumerate(flows):
             tail, fl = self._states.get(k, (b"", 0))
             if fl:
-                # Real tail bytes sit right-aligned: the fabricated zeros
-                # are the first H - fill columns.
                 halo_b[i, H - fl :] = np.frombuffer(tail, np.uint8)
                 fill_v[i] = fl
-        # The whole round in one dispatch when its padded buffer fits the
-        # budget; widths round up to powers of two.
+        return halo_b, fill_v
+
+    def _flat_round(self, flows, lens, H: int) -> None:
+        """A round on the matcher's plain ``window`` engine: the flat padded
+        round through ``window_stream_chunk`` in one dispatch when it fits
+        the budget (widths round up to powers of two), else the chunk loop
+        with the halo carried on the device."""
+        F, rel_all, longest, long_q = self._lanes(lens)
+        halo_b, fill_v = self._halos(flows, H, F)
+        fold = self.matcher._maybe_fold
         round_q = max(self.width, 1 << max(0, (longest - 1).bit_length()))
-        # Per-launch int32 bound: the sub-lane tile scans about
-        # F * nch * (H + width) positions in one kernel, and a position
-        # starts at most one match per pattern.  Past 2^31 the round takes
-        # the chunk loop.
-        nch_p = _pow2(max(1, -(-round_q // self.width)), 1)
-        proj_positions = (F + 512) * nch_p * (H + self.width)
         if (F * round_q <= max(self.ROUND_BUDGET_BYTES, F * self.width)
-                and proj_positions < 2**31):
+                and F * (H + round_q) < 2**31):
             buf = np.zeros((F, round_q), np.uint8)
             for i, k in enumerate(flows):
                 b = self._pending[k]
-                buf[i, : len(b)] = np.frombuffer(bytes(b), np.uint8)
-            counts_u = self._window_round(buf, rel_all.astype(np.int32), halo_b, fill_v)
-            self._acc_device(counts_u, positions=self._round_positions)
-            self._store_tails(flows, H)
+                buf[i, : len(b)] = np.frombuffer(b, np.uint8)
+            FLOWS["tile_bytes"] += buf.nbytes + halo_b.nbytes
+            with span("msm.flow.dispatch"):
+                counts, _ = window_stream_chunk(
+                    self.matcher.window, self._device_tile(fold(buf)),
+                    rel_all.astype(np.int32),
+                    StreamHalo(self._device_tile(fold(halo_b)), self._device_tile(fill_v)),
+                    expand_duplicates=False,
+                )
+            self._acc_device(counts, positions=F * (H + round_q))
             return
         # Stored tails are raw capture bytes: fold them like the chunks
         # (folding is idempotent).
-        fold = self.matcher._maybe_fold
         halo = StreamHalo(self._device_tile(fold(halo_b)), self._device_tile(fill_v))
-        halo_count = self.matcher.halo_kernels.count_tile_halo if self._use_halo_kernel() else None
 
         def step(tile, c):
             nonlocal halo
             counts, halo = window_stream_chunk(
                 self.matcher.window, self._device_tile(fold(tile)),
-                (rel_all - c).astype(np.int32), halo, halo_count=halo_count,
+                (rel_all - c).astype(np.int32), halo,
             )
             return counts
 
         self._chunk_loop(flows, F, longest, long_q, step)
-        self._store_tails(flows, H)
 
     def _chunk_loop(self, flows, F: int, longest: int, long_q: int, step) -> None:
         """Scan the round in ``width``-column chunks, ``step(tile, c)`` giving
@@ -454,7 +472,7 @@ class FlowStreamMatcher:
             padded = np.zeros((F, long_q), np.uint8)
             for i, k in enumerate(flows):
                 b = self._pending[k]
-                padded[i, : len(b)] = np.frombuffer(bytes(b), np.uint8)
+                padded[i, : len(b)] = np.frombuffer(b, np.uint8)
         # Sum on the device and fetch once per round while the round's
         # positions fit int32; else fetch per chunk into host int64.
         device_acc = padded is not None and F * long_q < 2**31
@@ -466,7 +484,7 @@ class FlowStreamMatcher:
                 tile = np.zeros((F, self.width), np.uint8)
                 for i, k in enumerate(flows):
                     seg = self._pending[k][c : c + self.width]
-                    tile[i, : len(seg)] = np.frombuffer(bytes(seg), np.uint8)
+                    tile[i, : len(seg)] = np.frombuffer(seg, np.uint8)
             FLOWS["tile_bytes"] += tile.nbytes
             with span("msm.flow.dispatch"):
                 counts = step(tile, c)
@@ -479,10 +497,11 @@ class FlowStreamMatcher:
             with span("msm.drain"):
                 self._counts += round_counts.cpu().numpy().astype(np.int64)
 
-    def _ac_round(self, flows, F: int, rel_all, longest: int, long_q: int) -> None:
+    def _ac_round(self, flows, lens) -> None:
         """One ``ac`` round: the chunk loop with each lane's DFA state carried
         on the device from chunk to chunk (a lane past its bytes holds its
         state), then each flow's final state stored for the next round."""
+        F, rel_all, longest, long_q = self._lanes(lens)
         states = np.zeros(F, np.int32)
         for i, k in enumerate(flows):
             states[i] = self._states.get(k, 0)
@@ -523,74 +542,89 @@ class FlowStreamMatcher:
         would break the flow if it came back.  Then clear the round."""
         for k in flows:
             prev_tail, prev_fill = self._states.get(k, (b"", 0))
-            new = bytes(self._pending[k])
-            self._states[k] = ((prev_tail + new)[-H:], min(H, prev_fill + len(new)))
+            new = self._pending[k]
+            tail = bytes(new[-H:]) if len(new) >= H else (prev_tail + bytes(new))[-H:]
+            self._states[k] = (tail, min(H, prev_fill + len(new)))
         self._pending.clear()
         self._pending_bytes = 0
 
-    def _expand_round_lanes(self, buf, rel, halo_b, fill_v, CW: int):
-        """Re-lay a ``[F, W]`` round as sub-lanes of fixed width: ``([R, H +
-        CW] tile, eff int32[R], ms int32[R])``, flow i's chunk j in row
-        i*nch + j with the H bytes before its body as halo (overlapping
-        views, one strided copy).  A match counts in the sub-lane its end
-        falls in (min_end = H), so the tile's total equals the flat round's,
-        and the kernel sees one narrow width with every row in parallel."""
-        F, W = buf.shape
-        H = max(int(self.matcher.window.max_len) - 1, 1)
-        # pow2 sub-lane count; padding sub-lanes are zero with eff 0.
-        nch = _pow2(max(1, -(-W // CW)), 1)
-        x = np.zeros((F, H + nch * CW), np.uint8)
-        x[:, :H] = halo_b
-        x[:, H : H + W] = buf
-        s0, s1 = x.strides
-        sub = np.lib.stride_tricks.as_strided(x, shape=(F, nch, H + CW),
-                                              strides=(s0, CW * s1, s1))
-        x2 = np.ascontiguousarray(sub).reshape(F * nch, H + CW)
-        i = np.repeat(np.arange(F), nch)
-        j = np.tile(np.arange(nch), F)
-        eff_abs = np.minimum(np.clip(rel, 0, None).astype(np.int64) + H, H + W)
-        eff2 = np.clip(eff_abs[i] - j * CW, 0, H + CW).astype(np.int32)
-        ms_abs = (H - fill_v).astype(np.int64)
-        ms2 = np.clip(ms_abs[i] - j * CW, 0, None).astype(np.int32)
-        return x2, eff2, ms2
+    def _ragged_tiles(self, flows, lens, H: int) -> Iterator:
+        """The round as ragged sub-lanes, one ``(x uint8[r, H + width], eff
+        int32[r], min_start int32[r])`` slice a launch, each built when it
+        is asked for.
 
-    def _window_round(self, buf, rel, halo_b, fill_v) -> torch.Tensor:
-        """One round in one dispatch: device int32[U] counts in build order
-        (expanded at drain).  The halo kernel over the round re-laid as
-        sub-lanes (``_expand_round_lanes``) when the matcher's engine is
-        ``pallas``; else the plain window form over the flat round.  With
-        ``sharded`` the sub-lanes split over the mesh, each shard running
-        either form on its device."""
+        Flow i's ``[H-byte halo | n_i pending bytes]`` string, the halo its
+        stored tail, is cut into ``ceil(n_i / width)`` rows: row j holds the
+        string from column ``j * width``, its first H bytes the bytes before
+        its body.  A match counts in the row its end falls in (``min_end =
+        H``) and never starts in the halo's fabricated zeros (``min_start``),
+        so the rows' total is the flat round's.  Bytes past a row's ``eff``
+        are zeros.  Rows are independent, so slices of at most
+        ``ROUND_BUDGET_BYTES`` (and 2^30 positions, under the drain guard)
+        are exact."""
+        W = self.width
+        L = H + W
+        rows = -(-lens // W)
+        first = np.zeros(len(flows) + 1, np.int64)
+        np.cumsum(rows, out=first[1:])
+        flow_of = np.repeat(np.arange(len(flows)), rows)
+        j = np.arange(int(first[-1])) - first[flow_of]
+        halo_b, fill_v = self._halos(flows, H, len(flows))
+        eff = np.clip(lens[flow_of] + H - j * W, 0, L).astype(np.int32)
+        ms = np.maximum(H - fill_v[flow_of] - j * W, 0).astype(np.int32)
+        # Rows whose halo reaches back past their flow's first row in the
+        # slice: one when width >= H, ceil(H / width) when narrower.
+        n_fix = -(-H // W)
         fold = self.matcher._maybe_fold
-        self._round_positions = buf.shape[0] * (buf.shape[1] + halo_b.shape[1])
-        use_halo = self._use_halo_kernel()
-        if use_halo or self.sharded:
-            x2, eff2, ms2 = self._expand_round_lanes(fold(buf), rel, fold(halo_b), fill_v,
-                                                     self.width)
-            # The drain guard bounds the positions really scanned: the
-            # sub-lane tile (pow2 nch, repeated halos) can be over twice
-            # the flat round.
-            self._round_positions = x2.shape[0] * x2.shape[1]
-            FLOWS["tile_bytes"] += x2.nbytes
-        else:
-            FLOWS["tile_bytes"] += buf.nbytes + halo_b.nbytes
-        with span("msm.flow.dispatch"):
-            if self.sharded:
-                from multithreading_string_matching_tpu_torch.parallel.mesh import (
-                    count_flow_round_sharded,
-                )
+        step = max(1, min(self.ROUND_BUDGET_BYTES, 2**30) // L)
+        R = int(first[-1])
+        first, lens = first.tolist(), lens.tolist()
+        for r0 in range(0, R, step):
+            r1 = min(r0 + step, R)
+            # The slice's bodies back to back, H zeros in front: row r's
+            # H + width bytes start at (r - r0) * width.
+            ext = np.zeros(H + (r1 - r0) * W, np.uint8)
+            placed = []
+            for i in range(bisect.bisect_right(first, r0) - 1, bisect.bisect_left(first, r1)):
+                pend, f0 = self._pending[flows[i]], first[i]
+                a, b = max(f0, r0), min(first[i + 1], r1)
+                src = (a - f0) * W
+                n = min(lens[i], (b - f0) * W) - src
+                dst = H + (a - r0) * W
+                ext[dst : dst + n] = np.frombuffer(pend, np.uint8, n, src)
+                placed.append((i, pend, a - r0, min(b, a + n_fix) - r0, src))
+            x = np.lib.stride_tricks.as_strided(ext, (r1 - r0, L), (W, 1)).copy()
+            for i, pend, ra, rb, jw in placed:
+                for r in range(ra, rb):
+                    if jw >= H:
+                        x[r, :H] = np.frombuffer(pend, np.uint8, H, jw - H)
+                    else:  # the stored tail's part, then the flow's first bytes
+                        x[r, : H - jw] = halo_b[i, jw:]
+                        x[r, H - jw : H] = np.frombuffer(pend, np.uint8, jw)
+                    jw += W
+            yield fold(x), eff[r0:r1], ms[r0:r1]
 
-                return count_flow_round_sharded(self.matcher, x2, eff2, ms2, self.mesh,
-                                                engine="pallas" if use_halo else "window")
-            if use_halo:
-                return self.matcher.halo_kernels.count_tile_halo(
-                    self._device_tile(x2), self._device_tile(eff2), self._device_tile(ms2))
-            counts, _ = window_stream_chunk(
-                self.matcher.window, self._device_tile(fold(buf)), rel,
-                StreamHalo(self._device_tile(fold(halo_b)), self._device_tile(fill_v)),
-                expand_duplicates=False,
-            )
-            return counts
+    def _ragged_round(self, flows, lens, H: int) -> None:
+        """A ``window`` round on the halo kernel (its plain version on a CPU
+        matcher), or sharded: one launch a slice of ``_ragged_tiles``, the
+        counts summed on the device.  With ``sharded`` a slice's rows split
+        over the mesh, each shard running the halo kernel or, on a ``window``
+        matcher, its plain form."""
+        use_halo = self._use_halo_kernel()
+        for x, eff, ms in self._ragged_tiles(flows, lens, H):
+            FLOWS["tile_bytes"] += x.nbytes
+            with span("msm.flow.dispatch"):
+                if self.sharded:
+                    from multithreading_string_matching_tpu_torch.parallel.mesh import (
+                        count_flow_round_sharded,
+                    )
+
+                    counts = count_flow_round_sharded(self.matcher, x, eff, ms, self.mesh,
+                                                      engine="pallas" if use_halo else "window")
+                else:
+                    counts = self.matcher.halo_kernels.count_tile_halo(
+                        self._device_tile(x), self._device_tile(eff), self._device_tile(ms))
+            self._acc_device(counts, positions=x.size)
 
     def _acc_device(self, counts: torch.Tensor, *, positions: int) -> None:
         self._dev_counts = counts if self._dev_counts is None else self._dev_counts + counts

@@ -184,9 +184,11 @@ def count_chunk_sharded(cac: CompiledAC, payloads, lengths, states, mesh: Mesh, 
 
 def count_flow_round_sharded(matcher, x2, eff2, ms2, mesh: Mesh, *, engine: str = "window"
                              ) -> torch.Tensor:
-    """One flow round over a sub-lane tile (FlowStreamMatcher's
-    ``_expand_round_lanes`` layout) with the sub-lanes sharded over the
-    mesh: int32[U] build-order counts, summed on the first shard's device.
+    """One flow round's launch over a sub-lane tile (a slice of
+    FlowStreamMatcher's ragged rows, ``_ragged_tiles``: ``[H-byte halo |
+    width bytes]`` rows, each with its own ``eff`` and ``min_start``) with the
+    rows sharded over the mesh: int32[U] build-order counts, summed on the
+    first shard's device.
     ``engine='pallas'`` launches the halo kernel on each shard
     (``window_count_halo``); ``'window'`` runs its plain form."""
     devs = list(mesh.devices.flat)

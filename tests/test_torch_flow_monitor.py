@@ -177,26 +177,29 @@ def test_spans_open_under_the_profiler_and_flows_counts(capture, tmp_path):
 
 
 def test_flows_counts_rounds_that_take_the_chunk_loop(capture, monkeypatch):
+    """Past ``ROUND_BUDGET_BYTES`` a round's ragged rows split over several
+    launches (``msm.flow.dispatch`` spans), each an exact slice of rows:
+    the counts stay the reference's, and ``FLOWS`` counts every stream byte
+    once and tiles of whole ``H + width`` rows."""
     path, nbytes, want, _ = capture
-    fsm = flow_stream.FlowStreamMatcher
-    monkeypatch.setattr(fsm, "ROUND_BUDGET_BYTES", 1)
-    loops, chunk_loop = [], fsm._chunk_loop
+    matcher = Matcher(PATTERNS, engine="pallas", device="cpu")
+    row = max(int(matcher.window.max_len) - 1, 1) + STREAM["width"]
+    monkeypatch.setattr(flow_stream.FlowStreamMatcher, "ROUND_BUDGET_BYTES", 4 * row)
+    names, real_span = [], flow_stream.span
 
-    def counted_loop(self, *a):
-        loops.append(a[1])   # the round's lane count F
-        return chunk_loop(self, *a)
+    def recording(name):
+        names.append(name)
+        return real_span(name)
 
-    monkeypatch.setattr(fsm, "_chunk_loop", counted_loop)
+    monkeypatch.setattr(flow_stream, "span", recording)
     before = dict(flow_stream.FLOWS)
-    fs = monitor(Matcher(PATTERNS, engine="pallas", device="cpu"), "window")
+    fs = monitor(matcher, "window")
     got = flow_stream.count_pcap_flows_streamed(fs, path, batch_packets=STREAM["batch_packets"])
     np.testing.assert_array_equal(got, want)
-    assert len(loops) == fs._round > 3
+    assert names.count("msm.flow.dispatch") > 2 * fs._round > 6
     counted = {k: flow_stream.FLOWS[k] - before[k] for k in before}
     assert counted["real_bytes"] == nbytes
-    # Each chunk hands one [F, width] tile: at least the round's longest
-    # flow in chunks on each of its F lanes.
-    assert counted["tile_bytes"] % (STREAM["width"] * STREAM["min_lanes"]) == 0
+    assert counted["tile_bytes"] % row == 0
     assert counted["tile_bytes"] >= nbytes
 
 
@@ -323,3 +326,23 @@ def test_a_pass_on_the_card_equals_the_reference_and_names_its_spans(capture, tm
     names = {e.key for e in prof.key_averages()}
     assert {"msm.stream", "msm.ingest", "msm.flow.feed", "msm.flow.layout",
             "msm.flow.dispatch", "msm.drain", "msm_window_count_halo"} <= names
+
+
+@pytest.mark.gpu
+def test_a_round_under_the_budget_is_one_launch_on_the_card(capture):
+    """On the card every round of the ragged layout under the budget is
+    exactly one ``window_count_halo`` launch, and the pass equals the
+    plain reference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    from multithreading_string_matching_tpu_torch.ops import cuda_window
+
+    path, nbytes, want, _ = capture
+    fs = monitor(Matcher(PATTERNS, engine="pallas", device="cuda"))
+    assert fs.engine == "window"
+    before = dict(cuda_window.LAUNCHES)
+    got = flow_stream.count_pcap_flows_streamed(fs, path, batch_packets=STREAM["batch_packets"])
+    np.testing.assert_array_equal(got, want)
+    launched = {k: v - before.get(k, 0) for k, v in cuda_window.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert fs._round > 3 and launched == {"window_count_halo": fs._round}

@@ -1,7 +1,8 @@
 """The torch package's streamed flow path against the JAX package's: the
 window count's ``min_end``/``min_start`` masks, ``window_stream_chunk``,
 the halo kernel's plain version (against the interpret-mode Pallas halo
-kernel), the sub-lane re-layout of a round, and ``FlowStreamMatcher`` with
+kernel), the ragged sub-lane layout of a round (against the flat round,
+and no larger than the JAX package's padded tile), and ``FlowStreamMatcher`` with
 the window engine, also against the concatenated-flow oracle.
 
 Inputs are made from seeds with numpy; every comparison is exact (integer
@@ -196,9 +197,9 @@ def test_skew_fallback_equals_jax(captures, monkeypatch):
 
 
 def test_chunk_loop_with_padded_round(captures, monkeypatch):
-    """The chunk loop over one padded round buffer: a budget between the
-    padded width (``long_q``) and the pow2 single-dispatch width
-    (``round_q``) refuses the single dispatch only."""
+    """The plain ``window`` engine's chunk loop over one padded round
+    buffer: a budget between the padded width (``long_q``) and the pow2
+    single-dispatch width (``round_q``) refuses the single dispatch only."""
     orig = FlowStreamMatcher._scan_impl
     loops = []
 
@@ -212,7 +213,7 @@ def test_chunk_loop_with_padded_round(captures, monkeypatch):
         orig(self)
 
     monkeypatch.setattr(FlowStreamMatcher, "_scan_impl", budgeted)
-    fs = FlowStreamMatcher(Matcher(PATS, device="cpu"), "tcp", engine="window",
+    fs = FlowStreamMatcher(Matcher(PATS, engine="window", device="cpu"), "tcp", engine="window",
                            scan_bytes=5000, width=16, min_lanes=4)
     assert _feed(fs, read_pcap(captures["v4"]), 40, slice_pcap).tolist() == _oracle(
         captures["v4"], PATS)
@@ -448,25 +449,73 @@ def test_halo_plain_equals_pallas_interpret(pats):
         assert cw.LAUNCHES == before  # the plain version is not a launch
 
 
-def test_expand_round_lanes_equal_jax():
-    rng = np.random.default_rng(91)
-    for pats in (PATS, [b"ab"], NUL_PATS):
-        jfs = JaxFlowStream(JaxMatcher(pats, engine="window"), "tcp", engine="window",
-                            width=16, min_lanes=8)
-        fs = FlowStreamMatcher(Matcher(pats, device="cpu"), "tcp", engine="window",
-                               width=16, min_lanes=8)
-        H = max(len(max(pats, key=len)) - 1, 1)
-        for _ in range(4):
-            F, W = 8, int(rng.integers(1, 200))
-            buf, rel, halo, fill = _lanes(int(rng.integers(1 << 30)), F, W, H)
-            for cw_ in (16, 5):
-                got = fs._expand_round_lanes(buf, rel, halo, fill, cw_)
-                want = jfs._expand_round_lanes(buf, rel, halo, fill, cw_)
-                for g, w in zip(got, want):
-                    assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w)
-            x2, eff2, ms2 = got
-            flat, _ = window_stream_chunk(fs.matcher.window, buf, rel,
-                                          StreamHalo(torch.from_numpy(halo), torch.from_numpy(fill)),
-                                          expand_duplicates=False)
-            sub = fs.matcher.halo_kernels.count_tile_halo(x2, eff2, ms2)
-            assert np.array_equal(sub.numpy(), flat.numpy())
+def _round(fs, rng, H, alphabet=b"abc\x00"):
+    """A random round on ``fs``: 1-11 flows of 1-59 pending bytes, one of
+    100-399 (longer than every other), the first with an empty tail, the
+    second with a tail of ``0 < fill < H`` bytes where ``H > 1``, the rest
+    of any fill.  Returns ``(keys, lens)``."""
+    letters = np.frombuffer(alphabet, np.uint8)
+    n = int(rng.integers(1, 12))
+    lens = rng.integers(1, 60, size=n)
+    lens[int(rng.integers(n))] = rng.integers(100, 400)
+    fills = rng.integers(0, H + 1, size=n)
+    fills[0] = 0
+    if n > 1 and H > 1:
+        fills[1] = int(rng.integers(1, H))
+    fs._states, fs._pending = {}, {}
+    keys = [struct.pack(">I", i) * 3 for i in range(n)]
+    for k, ln, fl in zip(keys, lens, fills):
+        fs._pending[k] = bytearray(letters[rng.integers(0, len(letters), size=int(ln))])
+        if fl:
+            fs._states[k] = (letters[rng.integers(0, len(letters), size=int(fl))].tobytes(),
+                             int(fl))
+    return keys, lens.astype(np.int64)
+
+
+@pytest.mark.parametrize("width", [16, 5])
+@pytest.mark.parametrize("pats", [PATS, [b"ab"], NUL_PATS], ids=["pats", "ab", "nul"])
+def test_ragged_round_equals_the_flat_round(pats, width):
+    """A round's ragged sub-lanes (each flow its own ``ceil(n / width)``
+    rows), counted by the halo kernel's plain version, equal
+    ``window_stream_chunk`` over the flat padded round; the ragged tile is
+    no larger than the JAX package's padded sub-lane tile of the same
+    round (``_expand_round_lanes``); and a budget of a few rows splits the
+    rows over several slices that together are the same tile."""
+    rng = np.random.default_rng(91 + width + len(pats))
+    fs = FlowStreamMatcher(Matcher(pats, device="cpu"), "tcp", engine="window", width=width,
+                           min_lanes=8)
+    jfs = JaxFlowStream(JaxMatcher(pats, engine="window"), "tcp", engine="window", width=width,
+                        min_lanes=8)
+    H = max(len(max(pats, key=len)) - 1, 1)
+    total = 0
+    for _ in range(4):
+        keys, lens = _round(fs, rng, H, bytes(sorted(set(b"".join(pats)))))
+        x, eff, ms = (np.concatenate(a) for a in zip(*fs._ragged_tiles(keys, lens, H)))
+        assert x.shape == (int(sum(-(-lens // width))), H + width)
+        # The round as the padded layout lays it out: pow2 lanes, every
+        # lane as wide as the pow2 of the longest flow.
+        F = _pow2(len(keys), fs.min_lanes)
+        buf = np.zeros((F, max(width, 1 << (int(lens.max()) - 1).bit_length())), np.uint8)
+        rel = np.zeros(F, np.int32)
+        halo = np.zeros((F, H), np.uint8)
+        fill = np.zeros(F, np.int32)
+        for i, k in enumerate(keys):
+            buf[i, : lens[i]] = np.frombuffer(fs._pending[k], np.uint8)
+            rel[i] = lens[i]
+            tail, fill[i] = fs._states.get(k, (b"", 0))
+            halo[i, H - fill[i] :] = np.frombuffer(tail, np.uint8)
+        flat, _ = window_stream_chunk(fs.matcher.window, buf, rel,
+                                      StreamHalo(torch.from_numpy(halo), torch.from_numpy(fill)),
+                                      expand_duplicates=False)
+        sub = fs.matcher.halo_kernels.count_tile_halo(x, eff, ms)
+        assert np.array_equal(sub.numpy(), flat.numpy())
+        total += int(flat.sum())
+        padded = jfs._expand_round_lanes(buf, rel, halo, fill, width)[0]
+        assert x.nbytes <= padded.nbytes
+        fs.ROUND_BUDGET_BYTES = 3 * (H + width)
+        parts = list(fs._ragged_tiles(keys, lens, H))
+        del fs.ROUND_BUDGET_BYTES
+        assert len(parts) == -(-x.shape[0] // 3) > 1 or x.shape[0] <= 3
+        for got, want in zip(zip(*parts), (x, eff, ms)):
+            assert np.array_equal(np.concatenate(got), want)
+    assert total > 0
