@@ -27,13 +27,12 @@ int (ac) or its ``H``-byte tail (window).  Eviction (``max_flows``,
 pending bytes are scanned first.
 
 On the card an ``ac`` round is one ``ac_scan`` launch per ``width``-byte
-chunk; a ``window`` round is one launch of the halo kernel
-(``ops/cuda_window.window_count_halo``) over the round laid out as ragged
-sub-lanes, each flow taking only the ``ceil(bytes / width)`` rows its own
-bytes need (more launches only past ``ROUND_BUDGET_BYTES``).  The matcher's
-``window`` engine takes the plain form over the flat padded round on its
-device.  Counts stay on the device as int32 across rounds and drain to
-host int64 before they can wrap.
+chunk.  A ``window`` round has one layout: ragged sub-lanes, each flow
+taking only the ``ceil(bytes / width)`` rows its own bytes need, counted in
+one launch (more only past ``ROUND_BUDGET_BYTES``) by the halo kernel
+(``ops/cuda_window.window_count_halo``) on a ``pallas`` matcher, or by its
+plain form on a ``window`` matcher.  Counts stay on the device as int32
+across rounds and drain to host int64 before they can wrap.
 
 ``sharded=True`` splits the flow lanes over a mesh (``mesh=``, default:
 every device of the matcher's type): ``ac`` chunks through
@@ -58,9 +57,9 @@ load.
 fed, flushed and counted.  Under ``torch.profiler`` it opens the spans of
 ``utils.timing.span``: ``msm.stream`` (one call), ``msm.ingest`` (each read
 of the chunk iterator), ``msm.flow.feed`` (each :meth:`feed_pcap_slice`,
-rounds included), ``msm.flow.layout`` (a round: tails, sub-lanes or padded
-lanes, fold, the find pass with ``collect_offsets``), inside it
-``msm.flow.dispatch`` (a launch's or a chunk's copies and launch) and
+rounds included), ``msm.flow.layout`` (a round: tails, sub-lanes or the
+``ac`` engine's padded lanes, fold, the find pass with ``collect_offsets``),
+inside it ``msm.flow.dispatch`` (a launch's or a chunk's copies and launch) and
 ``msm.drain`` (device counts or states fetched to the host).
 :data:`FLOWS` counts the rounds' stream and tile bytes.
 """
@@ -81,7 +80,13 @@ from multithreading_string_matching_tpu_torch.io.flows import (
     tcp_seqs,
 )
 from multithreading_string_matching_tpu_torch.ops.scan import check_states, count_matches_ac
-from multithreading_string_matching_tpu_torch.ops.window import StreamHalo, window_stream_chunk
+from multithreading_string_matching_tpu_torch.ops.window import window_count_halo_plain
+from multithreading_string_matching_tpu_torch.parallel.mesh import (
+    _staged_window,
+    count_chunk_sharded,
+    count_flow_round_sharded,
+    make_mesh,
+)
 from multithreading_string_matching_tpu_torch.utils.timing import span
 
 # Since import: stream bytes the scan rounds took (``real_bytes``) and bytes
@@ -97,9 +102,8 @@ def _pow2(x: int, floor: int) -> int:
 
 class FlowStreamMatcher:
     # One launch's host tile budget: a ragged round past it splits its rows
-    # over several launches; a padded round (the ``ac`` engine, the plain
-    # ``window`` one) falls back to bounded per-chunk tiles.  Class-level so
-    # tests can lower it.
+    # over several launches; an ``ac`` round falls back to bounded per-chunk
+    # tiles.  Class-level so tests can lower it.
     ROUND_BUDGET_BYTES = 64 << 20
 
     def __init__(
@@ -163,8 +167,6 @@ class FlowStreamMatcher:
             # split by row (lane tails are host state).  One sum merges the
             # counts.  Lane counts round up to the device count so the
             # shards are even.
-            from multithreading_string_matching_tpu_torch.parallel.mesh import make_mesh
-
             self.mesh = mesh if mesh is not None else make_mesh(
                 device_type=matcher.device.type)
             self._n_dev = int(self.mesh.devices.size)
@@ -360,10 +362,10 @@ class FlowStreamMatcher:
         return out
 
     def _use_halo_kernel(self) -> bool:
-        """Rounds take the halo kernel when the matcher's engine resolves to
-        ``pallas`` (its plain version on a CPU matcher); the ``window``
-        engine, and the unported ``ac``/``kmp`` matchers, take the plain
-        window form, as the JAX package's XLA form does."""
+        """A ``window`` round's ragged rows take the halo kernel when the
+        matcher's engine resolves to ``pallas`` (its plain version on a CPU
+        matcher); a ``window`` matcher, and an ``ac``/``kmp`` one, take the
+        kernel's plain form over the same rows."""
         if self.matcher.engine in ("ac", "kmp"):
             return False
         return self.matcher._resolve_engine(None) == "pallas"
@@ -393,16 +395,14 @@ class FlowStreamMatcher:
             self._ac_round(flows, lens)
             return
         H = max(int(self.matcher.window.max_len) - 1, 1)
-        if self._use_halo_kernel() or self.sharded:
-            self._ragged_round(flows, lens, H)
-        else:
-            self._flat_round(flows, lens, H)
+        self._ragged_round(flows, lens, H)
         self._store_tails(flows, H)
 
     def _lanes(self, lens):
-        """The padded lane geometry of the chunk-loop rounds: ``(F, rel_all,
-        longest, long_q)``, ``F`` a power of two of at least ``min_lanes``
-        and a multiple of the device count (sharded lanes split evenly)."""
+        """The padded lane geometry of an ``ac`` round, the only one that
+        takes the chunk loop: ``(F, rel_all, longest, long_q)``, ``F`` a
+        power of two of at least ``min_lanes`` and a multiple of the device
+        count (sharded lanes split evenly)."""
         F = _pow2(len(lens), self.min_lanes)
         F = -(-F // self._n_dev) * self._n_dev
         rel_all = np.zeros(F, np.int64)
@@ -410,12 +410,12 @@ class FlowStreamMatcher:
         longest = int(lens.max())
         return F, rel_all, longest, -(-longest // self.width) * self.width
 
-    def _halos(self, flows, H: int, F: int):
-        """``([F, H] uint8 halos, int32[F] fills)``: each flow's stored tail
-        right-aligned, so the fabricated zeros are the first ``H - fill``
-        columns."""
-        halo_b = np.zeros((F, H), np.uint8)
-        fill_v = np.zeros(F, np.int32)
+    def _halos(self, flows, H: int):
+        """``(uint8[F, H] halos, int32[F] fills)`` of the ``F`` flows: each
+        flow's stored tail right-aligned, so the fabricated zeros are the
+        first ``H - fill`` columns."""
+        halo_b = np.zeros((len(flows), H), np.uint8)
+        fill_v = np.zeros(len(flows), np.int32)
         for i, k in enumerate(flows):
             tail, fl = self._states.get(k, (b"", 0))
             if fl:
@@ -423,49 +423,10 @@ class FlowStreamMatcher:
                 fill_v[i] = fl
         return halo_b, fill_v
 
-    def _flat_round(self, flows, lens, H: int) -> None:
-        """A round on the matcher's plain ``window`` engine: the flat padded
-        round through ``window_stream_chunk`` in one dispatch when it fits
-        the budget (widths round up to powers of two), else the chunk loop
-        with the halo carried on the device."""
-        F, rel_all, longest, long_q = self._lanes(lens)
-        halo_b, fill_v = self._halos(flows, H, F)
-        fold = self.matcher._maybe_fold
-        round_q = max(self.width, 1 << max(0, (longest - 1).bit_length()))
-        if (F * round_q <= max(self.ROUND_BUDGET_BYTES, F * self.width)
-                and F * (H + round_q) < 2**31):
-            buf = np.zeros((F, round_q), np.uint8)
-            for i, k in enumerate(flows):
-                b = self._pending[k]
-                buf[i, : len(b)] = np.frombuffer(b, np.uint8)
-            FLOWS["tile_bytes"] += buf.nbytes + halo_b.nbytes
-            with span("msm.flow.dispatch"):
-                counts, _ = window_stream_chunk(
-                    self.matcher.window, self._device_tile(fold(buf)),
-                    rel_all.astype(np.int32),
-                    StreamHalo(self._device_tile(fold(halo_b)), self._device_tile(fill_v)),
-                    expand_duplicates=False,
-                )
-            self._acc_device(counts, positions=F * (H + round_q))
-            return
-        # Stored tails are raw capture bytes: fold them like the chunks
-        # (folding is idempotent).
-        halo = StreamHalo(self._device_tile(fold(halo_b)), self._device_tile(fill_v))
-
-        def step(tile, c):
-            nonlocal halo
-            counts, halo = window_stream_chunk(
-                self.matcher.window, self._device_tile(fold(tile)),
-                (rel_all - c).astype(np.int32), halo,
-            )
-            return counts
-
-        self._chunk_loop(flows, F, longest, long_q, step)
-
     def _chunk_loop(self, flows, F: int, longest: int, long_q: int, step) -> None:
-        """Scan the round in ``width``-column chunks, ``step(tile, c)`` giving
-        each chunk's expanded counts: one padded round buffer sliced by
-        columns, or, past the budget (one huge flow padding every lane), a
+        """Scan an ``ac`` round in ``width``-column chunks, ``step(tile, c)``
+        giving each chunk's expanded counts: one padded round buffer sliced
+        by columns, or, past the budget (one huge flow padding every lane), a
         fresh tile per chunk with bounded memory."""
         padded = None
         if F * long_q <= max(self.ROUND_BUDGET_BYTES, F * self.width):
@@ -516,10 +477,6 @@ class FlowStreamMatcher:
             nonlocal states_v
             rel = np.clip(rel_all - c, 0, self.width).astype(np.int32)
             if self.sharded:
-                from multithreading_string_matching_tpu_torch.parallel.mesh import (
-                    count_chunk_sharded,
-                )
-
                 counts, states_v = count_chunk_sharded(cac, fold(tile), rel, states_v,
                                                        self.mesh, dup_map=dup, check=False)
             else:
@@ -558,8 +515,8 @@ class FlowStreamMatcher:
         string from column ``j * width``, its first H bytes the bytes before
         its body.  A match counts in the row its end falls in (``min_end =
         H``) and never starts in the halo's fabricated zeros (``min_start``),
-        so the rows' total is the flat round's.  Bytes past a row's ``eff``
-        are zeros.  Rows are independent, so slices of at most
+        so the rows' total is that of the flows' whole strings.  Bytes past a
+        row's ``eff`` are zeros.  Rows are independent, so slices of at most
         ``ROUND_BUDGET_BYTES`` (and 2^30 positions, under the drain guard)
         are exact."""
         W = self.width
@@ -569,7 +526,7 @@ class FlowStreamMatcher:
         np.cumsum(rows, out=first[1:])
         flow_of = np.repeat(np.arange(len(flows)), rows)
         j = np.arange(int(first[-1])) - first[flow_of]
-        halo_b, fill_v = self._halos(flows, H, len(flows))
+        halo_b, fill_v = self._halos(flows, H)
         eff = np.clip(lens[flow_of] + H - j * W, 0, L).astype(np.int32)
         ms = np.maximum(H - fill_v[flow_of] - j * W, 0).astype(np.int32)
         # Rows whose halo reaches back past their flow's first row in the
@@ -605,25 +562,26 @@ class FlowStreamMatcher:
             yield fold(x), eff[r0:r1], ms[r0:r1]
 
     def _ragged_round(self, flows, lens, H: int) -> None:
-        """A ``window`` round on the halo kernel (its plain version on a CPU
-        matcher), or sharded: one launch a slice of ``_ragged_tiles``, the
-        counts summed on the device.  With ``sharded`` a slice's rows split
-        over the mesh, each shard running the halo kernel or, on a ``window``
-        matcher, its plain form."""
+        """A ``window`` round: one launch a slice of ``_ragged_tiles``, the
+        counts summed on the device.  The counter follows what the round
+        can observe: with ``sharded`` the slice's rows split over the mesh
+        (``count_flow_round_sharded``); else the halo kernel when the matcher
+        resolves to ``pallas`` (its plain version on a CPU matcher), or the
+        kernel's plain form with the matcher's window tables on its device."""
         use_halo = self._use_halo_kernel()
         for x, eff, ms in self._ragged_tiles(flows, lens, H):
             FLOWS["tile_bytes"] += x.nbytes
             with span("msm.flow.dispatch"):
                 if self.sharded:
-                    from multithreading_string_matching_tpu_torch.parallel.mesh import (
-                        count_flow_round_sharded,
-                    )
-
                     counts = count_flow_round_sharded(self.matcher, x, eff, ms, self.mesh,
                                                       engine="pallas" if use_halo else "window")
-                else:
+                elif use_halo:
                     counts = self.matcher.halo_kernels.count_tile_halo(
                         self._device_tile(x), self._device_tile(eff), self._device_tile(ms))
+                else:
+                    counts = window_count_halo_plain(
+                        self._device_tile(x), self._device_tile(eff), self._device_tile(ms), H,
+                        _staged_window(self.matcher, self.matcher.device))
             self._acc_device(counts, positions=x.size)
 
     def _acc_device(self, counts: torch.Tensor, *, positions: int) -> None:

@@ -1,8 +1,8 @@
 """The torch package's streamed flow path against the JAX package's: the
 window count's ``min_end``/``min_start`` masks, ``window_stream_chunk``,
 the halo kernel's plain version (against the interpret-mode Pallas halo
-kernel), the ragged sub-lane layout of a round (against the flat round,
-and no larger than the JAX package's padded tile), and ``FlowStreamMatcher`` with
+kernel), the ragged sub-lane layout of a round (against a flat padded
+round built in the test, and no larger than the JAX package's padded tile), and ``FlowStreamMatcher`` with
 the window engine, also against the concatenated-flow oracle.
 
 Inputs are made from seeds with numpy; every comparison is exact (integer
@@ -41,6 +41,7 @@ from multithreading_string_matching_tpu_torch.ops.window import (
     window_count_halo_plain,
     window_stream_chunk,
 )
+from multithreading_string_matching_tpu_torch.parallel import flow_stream
 from multithreading_string_matching_tpu_torch.parallel.flow_stream import FlowStreamMatcher, _pow2
 
 torch.set_num_threads(1)
@@ -120,8 +121,8 @@ def _feed(fs, pcap, step, slicer):
 
 def _run_both(path, pats, step=7, *, nocase=False, budget=None, monkeypatch=None, **kw):
     """JAX stream counts and the port's, for the port matcher engines
-    ``pallas`` (the halo kernel's plain version over sub-lanes) and
-    ``window`` (the plain flat round)."""
+    ``pallas`` (the halo kernel's plain version) and ``window`` (the
+    kernel's plain form), both over the round's ragged sub-lanes."""
     if budget is not None:
         monkeypatch.setattr(JaxFlowStream, "ROUND_BUDGET_BYTES", budget)
         monkeypatch.setattr(FlowStreamMatcher, "ROUND_BUDGET_BYTES", budget)
@@ -188,7 +189,8 @@ def test_eviction_forgets_state_only(captures):
 
 
 def test_skew_fallback_equals_jax(captures, monkeypatch):
-    """Past ROUND_BUDGET_BYTES a round runs the chunk loop (fresh tiles)."""
+    """A budget of one byte: each ragged row is a launch of its own (the
+    JAX package's round runs its chunk loop)."""
     want, got = _run_both(captures["v4"], PATS, 17, budget=1, monkeypatch=monkeypatch,
                           scan_bytes=700, width=16, min_lanes=4)
     assert want.tolist() == _oracle(captures["v4"], PATS)
@@ -196,28 +198,29 @@ def test_skew_fallback_equals_jax(captures, monkeypatch):
         assert counts.tolist() == want.tolist()
 
 
-def test_chunk_loop_with_padded_round(captures, monkeypatch):
-    """The plain ``window`` engine's chunk loop over one padded round
-    buffer: a budget between the padded width (``long_q``) and the pow2
-    single-dispatch width (``round_q``) refuses the single dispatch only."""
-    orig = FlowStreamMatcher._scan_impl
-    loops = []
+def test_window_matcher_rounds_split_over_ragged_slices(captures, monkeypatch):
+    """A ``window`` matcher's round takes the ragged sub-lanes too: past a
+    budget of a few rows it splits them over several launches
+    (``msm.flow.dispatch`` spans), each an exact slice of whole ``H +
+    width`` rows, and the counts stay the oracle's."""
+    matcher = Matcher(PATS, engine="window", device="cpu")
+    row = max(int(matcher.window.max_len) - 1, 1) + 16
+    monkeypatch.setattr(FlowStreamMatcher, "ROUND_BUDGET_BYTES", 3 * row)
+    names, real_span = [], flow_stream.span
 
-    def budgeted(self):
-        if self._pending_bytes:
-            F = _pow2(sum(1 for b in self._pending.values() if b), self.min_lanes)
-            longest = max(len(b) for b in self._pending.values())
-            long_q = -(-longest // self.width) * self.width
-            loops.append(long_q < max(self.width, 1 << (longest - 1).bit_length()))
-            monkeypatch.setattr(FlowStreamMatcher, "ROUND_BUDGET_BYTES", F * long_q)
-        orig(self)
+    def recording(name):
+        names.append(name)
+        return real_span(name)
 
-    monkeypatch.setattr(FlowStreamMatcher, "_scan_impl", budgeted)
-    fs = FlowStreamMatcher(Matcher(PATS, engine="window", device="cpu"), "tcp", engine="window",
-                           scan_bytes=5000, width=16, min_lanes=4)
+    monkeypatch.setattr(flow_stream, "span", recording)
+    before = flow_stream.FLOWS["tile_bytes"]
+    fs = FlowStreamMatcher(matcher, "tcp", engine="window", scan_bytes=5000, width=16,
+                           min_lanes=4)
     assert _feed(fs, read_pcap(captures["v4"]), 40, slice_pcap).tolist() == _oracle(
         captures["v4"], PATS)
-    assert any(loops)
+    assert names.count("msm.flow.dispatch") > fs._round > 0
+    tile_bytes = flow_stream.FLOWS["tile_bytes"] - before
+    assert tile_bytes > 0 and tile_bytes % row == 0
 
 
 def test_forced_drain_equals_oracle(captures):
@@ -477,7 +480,9 @@ def _round(fs, rng, H, alphabet=b"abc\x00"):
 def test_ragged_round_equals_the_flat_round(pats, width):
     """A round's ragged sub-lanes (each flow its own ``ceil(n / width)``
     rows), counted by the halo kernel's plain version, equal
-    ``window_stream_chunk`` over the flat padded round; the ragged tile is
+    ``window_stream_chunk`` over the round as one flat padded buffer, the
+    test's own reference built here (the matcher has no such round); the
+    ragged tile is
     no larger than the JAX package's padded sub-lane tile of the same
     round (``_expand_round_lanes``); and a budget of a few rows splits the
     rows over several slices that together are the same tile."""
