@@ -61,7 +61,8 @@ rounds included), ``msm.flow.layout`` (a round: tails, sub-lanes or the
 ``ac`` engine's padded lanes, fold, the find pass with ``collect_offsets``),
 inside it ``msm.flow.dispatch`` (a launch's or a chunk's copies and launch) and
 ``msm.drain`` (device counts or states fetched to the host).
-:data:`FLOWS` counts the rounds' stream and tile bytes.
+:data:`FLOWS` counts the rounds' stream and tile bytes and the feeds'
+payload segments, those the grouped feed moved among them.
 """
 
 from __future__ import annotations
@@ -92,8 +93,10 @@ from multithreading_string_matching_tpu_torch.utils.timing import span
 # Since import: stream bytes the scan rounds took (``real_bytes``) and bytes
 # of the tiles handed to the matcher's device (``tile_bytes``: halos,
 # padding and padding lanes included); their ratio is the rounds' lane
-# fill.
-FLOWS: Dict[str, int] = {"real_bytes": 0, "tile_bytes": 0}
+# fill.  Payload segments fed (``feed_segments``) and those the grouped
+# feed moved (``grouped_segments``); their ratio is the share it takes.
+FLOWS: Dict[str, int] = {"real_bytes": 0, "tile_bytes": 0, "feed_segments": 0,
+                         "grouped_segments": 0}
 
 
 def _pow2(x: int, floor: int) -> int:
@@ -105,6 +108,11 @@ class FlowStreamMatcher:
     # over several launches; an ``ac`` round falls back to bounded per-chunk
     # tiles.  Class-level so tests can lower it.
     ROUND_BUDGET_BYTES = 64 << 20
+    # The fewest payload segments a feed moves as one grouped plan: below
+    # it nearly every segment is a flow of its own, and a Python step a
+    # segment costs less than the plan's fixed numpy calls.  Class-level so
+    # tests can lower it.
+    GROUP_MIN_SEGMENTS = 96
 
     def __init__(
         self,
@@ -206,40 +214,91 @@ class FlowStreamMatcher:
     def feed_pcap_slice(self, pcap) -> None:
         """Append each valid segment's payload to its flow's pending buffer
         (capture order, as io.flows; with ``reorder`` the TCP seq rides
-        along and ordering happens at scan time)."""
+        along and ordering happens at scan time).
+
+        A feed of at least ``GROUP_MIN_SEGMENTS`` payload segments without
+        ``reorder`` moves its bytes as one flow-major plan
+        (:meth:`_feed_grouped`); a smaller one a segment at a time.  Both
+        leave the same pending bytes, key order and bookkeeping."""
         # One geometry pass (VLAN walk + IHL reads) shared by keys, seqs and flags.
         geom = _flow_geom(pcap, self.ipv6, self.vlan)
         valid, keys, off, ln = flow_keys(pcap, self.mode, ipv6=self.ipv6, vlan=self.vlan,
                                          _geom=geom)
-        seqs = flags = None
+        seqs = None
         if self.reorder:
             seqs = tcp_seqs(pcap, valid, ipv6=self.ipv6, vlan=self.vlan, _geom=geom)
         if self.fin_evict:
             flags = tcp_flags(pcap, ipv6=self.ipv6, vlan=self.vlan, _geom=geom)
-        buf = pcap.buf
-        for pkt in np.flatnonzero(valid):
-            n = int(ln[pkt])
-            self.packets_seen += 1
-            k = None
-            if flags is not None and flags[pkt] & 0x05:  # FIN | RST
-                # Seen on empty segments too (a bare FIN/ACK); the flow
-                # closes after its pending bytes are scanned.
+            # FIN | RST, seen on empty segments too (a bare FIN/ACK); the
+            # flow closes after its pending bytes are scanned.
+            self._closing.update(k.tobytes() for k in keys[valid & (flags & 0x05 != 0)])
+        self.packets_seen += int(np.count_nonzero(valid))
+        segs = np.flatnonzero(valid & (ln > 0))
+        nbytes = int(ln[segs].sum())
+        FLOWS["feed_segments"] += segs.size
+        if seqs is None and segs.size and segs.size >= self.GROUP_MIN_SEGMENTS:
+            self._feed_grouped(pcap.buf, keys[segs], pcap.offsets[segs] + off[segs], ln[segs])
+            FLOWS["grouped_segments"] += segs.size
+        else:
+            buf = pcap.buf
+            for pkt in segs:
+                n = int(ln[pkt])
                 k = keys[pkt].tobytes()
-                self._closing.add(k)
-            if not n:
-                continue
-            if k is None:
-                k = keys[pkt].tobytes()
-            s = int(pcap.offsets[pkt] + off[pkt])
-            if seqs is not None:
-                self._pending.setdefault(k, []).append((int(seqs[pkt]), bytes(buf[s : s + n])))
-            else:
-                self._pending.setdefault(k, bytearray()).extend(buf[s : s + n])
-            self._pending_bytes += n
-            self.bytes_seen += n
-            self._last_active[k] = self._round
+                s = int(pcap.offsets[pkt] + off[pkt])
+                if seqs is not None:
+                    self._pending.setdefault(k, []).append((int(seqs[pkt]),
+                                                            bytes(buf[s : s + n])))
+                else:
+                    self._pending.setdefault(k, bytearray()).extend(buf[s : s + n])
+                self._last_active[k] = self._round
+        self._pending_bytes += nbytes
+        self.bytes_seen += nbytes
         if self._pending_bytes >= self.scan_bytes:
             self._scan()
+
+    def _feed_grouped(self, buf, keys, src, lens) -> None:
+        """Append the payload segments ``(keys[s], buf[src[s] :][: lens[s]])``,
+        given in capture order, to their flows' pending buffers as one
+        plan: the segments grouped by key with one sort over the key bytes
+        packed into ``uint64`` words, the flows in order of first
+        appearance and each flow's segments in capture order (io.flows'
+        own plan), all bytes copied into one flow-major block by one
+        ``native.scatter_segments`` (a numpy loop without the native
+        library), then one ``extend`` a flow."""
+        from multithreading_string_matching_tpu_torch.io import native
+
+        S, kw = keys.shape
+        words = np.zeros((S, -(-kw // 8) * 8), np.uint8)
+        words[:, :kw] = keys
+        words = words.view(np.uint64)
+        order = np.lexsort(words.T)  # stable: capture order within a key
+        sw = words[order]
+        new = np.ones(S, bool)
+        new[1:] = (sw[1:] != sw[:-1]).any(axis=1)
+        starts = np.flatnonzero(new)                 # groups, in key order
+        gid = np.cumsum(new) - 1
+        len_s = lens[order].astype(np.int64)
+        glen = np.add.reduceat(len_s, starts)
+        first = order[starts]                        # each group's first segment
+        by_seen = np.argsort(first)                  # groups in first-seen order
+        base = np.empty(len(starts), np.int64)
+        base[by_seen] = np.cumsum(glen[by_seen]) - glen[by_seen]
+        cum = np.cumsum(len_s) - len_s
+        dst = base[gid] + cum - cum[starts][gid]
+        src_s = src[order].astype(np.int64)
+        block = np.empty((1, int(glen.sum())), np.uint8)
+        if native.available():
+            native.scatter_segments(buf, src_s, len_s, np.zeros(S, np.int64), dst, block)
+        else:
+            flat = block[0]
+            for s, d, n in zip(src_s.tolist(), dst.tolist(), len_s.tolist()):
+                flat[d : d + n] = buf[s : s + n]
+        mv = memoryview(block[0])
+        raw = keys[first[by_seen]].tobytes()
+        for i, (a, n) in enumerate(zip(base[by_seen].tolist(), glen[by_seen].tolist())):
+            k = raw[i * kw : (i + 1) * kw]
+            self._pending.setdefault(k, bytearray()).extend(mv[a : a + n])
+            self._last_active[k] = self._round
 
     def _materialize_reorder(self) -> None:
         """Turn each flow's pending (seq, bytes) segments into the flat bytes

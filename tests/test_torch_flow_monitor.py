@@ -6,6 +6,8 @@ payload ends at the IP total length.
 - the pass equals the reference on a small seeded capture, on the window
   rounds (the halo kernel's plain version under a CPU ``pallas`` matcher)
   and on the CPU's default AC rounds, with segments split across rounds;
+  so does a pass whose every feed takes the grouped plan, which ``FLOWS``
+  counts (none with ``reorder``);
 - the generator writes the same bytes for the same seed, returns the
   reference's stream bytes and honours its ``packets`` cap, and its plants
   across segment boundaries count once;
@@ -109,6 +111,27 @@ def test_pass_equals_the_reference(capture, engine):
     assert fs.bytes_seen == nbytes == ref_bytes
     assert fs.packets_seen == len(records(path)) == SMALL["packets"]
     assert fs.flows_seen == sum(1 for s in tcp_streams(path) if s)
+
+
+@pytest.mark.parametrize("opts", [dict(engine="window"), dict(engine="ac"),
+                                  dict(engine="window", reorder=True)],
+                         ids=["window", "ac", "reorder"])
+def test_grouped_feed_pass_equals_the_reference(capture, monkeypatch, opts):
+    """A whole pass with every feed offered the grouped plan counts what the
+    reference counts; ``FLOWS`` says every payload segment took the plan,
+    and none with ``reorder`` (its pending segments carry their seq)."""
+    path, nbytes, want, _ = capture
+    monkeypatch.setattr(flow_stream.FlowStreamMatcher, "GROUP_MIN_SEGMENTS", 0)
+    before = dict(flow_stream.FLOWS)
+    fs = monitor(Matcher(PATTERNS, engine="pallas", device="cpu"), **opts)
+    got = flow_stream.count_pcap_flows_streamed(fs, str(path),
+                                                batch_packets=STREAM["batch_packets"])
+    np.testing.assert_array_equal(got, want)
+    assert fs.bytes_seen == nbytes and fs._round > 3
+    fed = {k: flow_stream.FLOWS[k] - before[k] for k in before}
+    valid, _, _, ln = pt_flows.flow_keys(read_pcap(str(path)), "tcp")
+    assert fed["feed_segments"] == np.count_nonzero(valid & (ln > 0)) > 100
+    assert fed["grouped_segments"] == (0 if opts.get("reorder") else fed["feed_segments"])
 
 
 def test_default_engine_and_options_give_the_same_counts(capture):

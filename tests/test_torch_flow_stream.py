@@ -3,7 +3,10 @@ window count's ``min_end``/``min_start`` masks, ``window_stream_chunk``,
 the halo kernel's plain version (against the interpret-mode Pallas halo
 kernel), the ragged sub-lane layout of a round (against a flat padded
 round built in the test, and no larger than the JAX package's padded tile), and ``FlowStreamMatcher`` with
-the window engine, also against the concatenated-flow oracle.
+the window engine, also against the concatenated-flow oracle.  The grouped
+feed (one plan a chunk) leaves exactly the state of the feed a segment at a
+time, with and without the native library, and counts what the JAX
+package's stream counts on both engines.
 
 Inputs are made from seeds with numpy; every comparison is exact (integer
 counts and bytes: tolerance 0).  The halo kernel itself needs a card:
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpubench import registry
 from oracle import count_overlapping
 from multithreading_string_matching_tpu import Matcher as JaxMatcher
 from multithreading_string_matching_tpu.io.pcap import read_pcap as jax_read
@@ -31,8 +35,14 @@ from multithreading_string_matching_tpu.parallel.flow_stream import (
     FlowStreamMatcher as JaxFlowStream,
 )
 from multithreading_string_matching_tpu_torch.api import Matcher
+from multithreading_string_matching_tpu_torch.io import native as pt_native
 from multithreading_string_matching_tpu_torch.io.flows import extract_flows
-from multithreading_string_matching_tpu_torch.io.pcap import read_pcap, slice_pcap
+from multithreading_string_matching_tpu_torch.io.pcap import (
+    classic_global_header,
+    read_pcap,
+    slice_pcap,
+)
+from multithreading_string_matching_tpu_torch.io.synth import _eth_ipv4_tcp
 from multithreading_string_matching_tpu_torch.ops import cuda_window as cw
 from multithreading_string_matching_tpu_torch.ops.window import (
     StreamHalo,
@@ -294,6 +304,137 @@ def test_reload_equals_jax(captures):
         fs.flush()
         assert fs.counts().tolist() == jfs.counts().tolist()
         assert len(fs.counts()) == len(new_pats)
+
+
+# -- the grouped feed: one plan a chunk against a step a segment ---------
+
+
+def _frames_capture(path, frames):
+    with open(path, "wb") as f:
+        f.write(classic_global_header())
+        for i, fr in enumerate(frames):
+            f.write(struct.pack("<IIII", i, 0, len(fr), len(fr)))
+            f.write(fr)
+
+
+def _udp_frame(payload: bytes, flow: int) -> bytes:
+    ip = bytearray(20)
+    ip[0], ip[9] = 0x45, 17
+    ip[2:4] = (28 + len(payload)).to_bytes(2, "big")
+    ip[12:16], ip[16:20] = bytes([10, 0, 1, flow + 1]), bytes([10, 9, 0, 1])
+    return (bytes(12) + b"\x08\x00" + bytes(ip)
+            + struct.pack(">HHHH", 4000 + flow, 53, 8 + len(payload), 0) + payload)
+
+
+@pytest.fixture(scope="module")
+def feed_captures(captures, tmp_path_factory):
+    """``name: (path, mode, stream kwargs, feed step)``: the synthetic
+    captures, a small ``tcp_http`` capture of the benchmark's generator,
+    interleaved UDP flows (every fifth datagram empty), a capture of bare
+    ACKs and FIN/ACKs only, and one of no decodable packet."""
+    d = tmp_path_factory.mktemp("grouped_feed")
+    rng = np.random.default_rng(11)
+    mix = registry.traffic("tcp_http")["capture"]
+    mix.update(connections=40, concurrent=8, packets=500, plant_every=300,
+               response_len={"alpha": 1.2, "min": 1500, "max": 9000})
+    registry.generator("tcp_flows").write(d / "tcp_http.pcap", mix, PATS, None, 2**31 + 25)
+    udp = [_udp_frame(b"" if i % 5 == 0 else bytes(ALPHABET[rng.integers(
+        0, len(ALPHABET), size=int(rng.integers(1, 300)))]), int(rng.integers(0, 9)))
+        for i in range(300)]
+    _frames_capture(d / "udp.pcap", udp)
+    acks = []
+    for i in range(120):
+        fr = bytearray(_eth_ipv4_tcp(b"", (f"10.0.0.{i % 7 + 1}", "10.9.0.1", 1000 + i % 7, 80),
+                                     i))
+        if i % 4 == 0:
+            fr[14 + 20 + 13] |= 0x01  # FIN
+        acks.append(bytes(fr))
+    _frames_capture(d / "acks.pcap", acks)
+    _frames_capture(d / "none.pcap", [bytes(10), bytes(12) + b"\x08\x06" + bytes(28),
+                                      _udp_frame(b"dns", 1)[:30]] * 20)
+    return {
+        "tcp_http": (d / "tcp_http.pcap", "tcp", {}, 64),
+        "ipv6": (captures["ipv6"], "tcp", dict(ipv6=True), 9),
+        "vlan": (captures["vlan"], "tcp", dict(vlan=True), 13),
+        "fin": (captures["fin"], "tcp", dict(fin_evict=True), 11),
+        "udp": (d / "udp.pcap", "udp", {}, 40),
+        "acks-only": (d / "acks.pcap", "tcp", dict(fin_evict=True), 30),
+        "no-valid": (d / "none.pcap", "tcp", {}, 25),
+    }
+
+
+def _feed_state(fs):
+    return (list(fs._pending.items()), list(fs._last_active.items()), set(fs._closing),
+            fs.packets_seen, fs.bytes_seen, fs._pending_bytes, fs._round,
+            list(fs._states.items()))
+
+
+@pytest.mark.parametrize("native_lib", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("scan_bytes", [1 << 30, 600], ids=["no-rounds", "rounds"])
+@pytest.mark.parametrize("name", ["tcp_http", "ipv6", "vlan", "fin", "udp", "acks-only",
+                                  "no-valid"])
+def test_grouped_feed_leaves_the_per_segment_state(feed_captures, monkeypatch, name,
+                                                   scan_bytes, native_lib):
+    """After every feed the grouped plan and the step a segment leave the
+    same pending keys in the same order with the same bytes, the same
+    ``_last_active`` (values and key order), ``_closing``, counters and
+    rounds; with the native scatter and with its numpy loop."""
+    path, mode, kw, step = feed_captures[name]
+    if not native_lib:
+        monkeypatch.setattr(pt_native, "available", lambda: False)
+    pcap = read_pcap(path)
+    m = Matcher(PATS, device="cpu")
+    before = dict(flow_stream.FLOWS)
+    grouped, single = (FlowStreamMatcher(m, mode, engine="ac", scan_bytes=scan_bytes, **kw)
+                       for _ in range(2))
+    for s in range(0, pcap.num_packets, step):
+        chunk = slice_pcap(pcap, s, s + step, copy=False)
+        monkeypatch.setattr(FlowStreamMatcher, "GROUP_MIN_SEGMENTS", 0)
+        grouped.feed_pcap_slice(chunk)
+        monkeypatch.setattr(FlowStreamMatcher, "GROUP_MIN_SEGMENTS", 1 << 62)
+        single.feed_pcap_slice(chunk)
+        assert _feed_state(grouped) == _feed_state(single)
+    fed = {k: flow_stream.FLOWS[k] - before[k] for k in before}
+    assert fed["grouped_segments"] * 2 == fed["feed_segments"]
+    grouped.flush()
+    single.flush()
+    assert grouped.counts().tolist() == single.counts().tolist()
+    if name in ("acks-only", "no-valid"):
+        assert fed["feed_segments"] == 0 and grouped.bytes_seen == 0
+        assert (len(grouped._closing) > 0) == (name == "acks-only")
+    else:
+        assert fed["feed_segments"] > 0 and len(grouped.counts()) == len(PATS)
+        assert len({k for k, _ in _feed_state(single)[1]}) > 1
+
+
+@pytest.mark.parametrize("engine", ["window", "ac"])
+@pytest.mark.parametrize("policy", [dict(), dict(max_flows=2),
+                                    dict(max_flows=3, idle_rounds=2, fin_evict=True)],
+                         ids=["keep", "max-flows", "all-policies"])
+def test_grouped_feed_counts_equal_jax(captures, monkeypatch, engine, policy):
+    """Every feed forced through the grouped plan: the window rounds and
+    the AC rounds, with eviction by age (``max_flows`` ranks flows by
+    ``_last_active``, ties by key order), count what the JAX package's
+    stream counts, and the counter says every payload segment took it."""
+    monkeypatch.setattr(FlowStreamMatcher, "GROUP_MIN_SEGMENTS", 0)
+    kw = dict(scan_bytes=300, width=32, min_lanes=4, **policy)
+    path = captures["fin"]
+    jm = JaxMatcher(PATS, engine="window") if engine == "window" else JaxMatcher(PATS)
+    jfs = JaxFlowStream(jm, "tcp", engine=engine, **kw)
+    want = _feed(jfs, jax_read(path), 11, jax_slice)
+    before = dict(flow_stream.FLOWS)
+    fs = FlowStreamMatcher(Matcher(PATS, engine="pallas", device="cpu"), "tcp", engine=engine,
+                           **kw)
+    got = _feed(fs, read_pcap(path), 11, slice_pcap)
+    assert got.tolist() == want.tolist() and got.sum() > 0
+    assert (fs.flows_seen, fs.packets_seen, fs.bytes_seen, fs.flows_evicted) == (
+        jfs.flows_seen, jfs.packets_seen, jfs.bytes_seen, jfs.flows_evicted)
+    fed = {k: flow_stream.FLOWS[k] - before[k] for k in before}
+    assert fed["grouped_segments"] == fed["feed_segments"] > 0
+    if not policy:
+        assert want.tolist() == _oracle(path, PATS)
+    else:
+        assert fs.flows_evicted > 0
 
 
 def test_unported_options_raise(captures, tmp_path):
