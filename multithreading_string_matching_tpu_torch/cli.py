@@ -271,7 +271,7 @@ def cmd_live(argv: List[str]) -> int:
 
     from multithreading_string_matching_tpu_torch.io.live import FileReplaySource, LiveSource
     from multithreading_string_matching_tpu_torch.io.pcap import PcapWriter
-    from multithreading_string_matching_tpu_torch.parallel.stream import StreamMatcher
+    from multithreading_string_matching_tpu_torch.parallel.stream import StreamMatcher, run_live
     from multithreading_string_matching_tpu_torch.utils.config import MatchConfig
     from multithreading_string_matching_tpu_torch.utils.report import format_report
 
@@ -322,32 +322,32 @@ def cmd_live(argv: List[str]) -> int:
         batches = prefetch_iter(iter(source), depth=max(2, threads))
     else:
         batches = source
+
+    def reload_between(st):
+        nonlocal matcher
+        if not reload_flag["hup"]:
+            return
+        reload_flag["hup"] = False
+        try:
+            new_matcher = _build(argv[1])
+            prev = st.reload(new_matcher)
+        except Exception as e:  # keep sniffing under the old rules
+            print(f"# rules reload failed, keeping old set: {e}", file=sys.stderr)
+        else:
+            print("# rules reloaded; counts under the previous set:", file=sys.stderr)
+            print(format_report(matcher.patterns, prev, None), file=sys.stderr)
+            matcher = new_matcher
+
     try:
-        for batch in batches:
-            if reload_flag["hup"]:
-                reload_flag["hup"] = False
-                try:
-                    new_matcher = _build(argv[1])
-                    prev = stream.reload(new_matcher)
-                except Exception as e:  # keep sniffing under the old rules
-                    print(f"# rules reload failed, keeping old set: {e}", file=sys.stderr)
-                else:
-                    print("# rules reloaded; counts under the previous set:", file=sys.stderr)
-                    print(format_report(matcher.patterns, prev, None), file=sys.stderr)
-                    matcher = new_matcher
-            # bpf_filter: only protocol-matching packets count as sniffed.
-            stream.feed_pcap_slice(batch, mode, bpf_filter=True)
-            if stream.stopped:
-                if hasattr(source, "stop"):
-                    source.stop()
-                break
+        # Only protocol-matching packets count as sniffed; the pending dump
+        # scan and the partial tile flush before the writer closes.
+        run_live(stream, batches, mode, between=reload_between)
     except KeyboardInterrupt:
         pass
     finally:
         stream.uninstall_sigint()
         if old_hup is not None:
             signal.signal(signal.SIGHUP, old_hup)
-        stream.flush()  # the pending dump scan and the partial tile, before close
         if writer is not None:
             writer.close()
     _report(matcher, stream.counts(), None, sniffed=stream.packets_seen, oops_line=True)

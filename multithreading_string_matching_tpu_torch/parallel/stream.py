@@ -32,23 +32,38 @@ int32 on the device and drain to a host int64 base before they can wrap
 
 Graceful shutdown: :meth:`StreamMatcher.install_sigint` sets a flag, as the
 reference's signalHandler does (live_openmp_task.c:262-264); the driving
-loop checks :attr:`StreamMatcher.stopped`, drains and reports.
+loop, :func:`run_live` (what ``live`` runs), checks
+:attr:`StreamMatcher.stopped` and drains.
+
+Under ``torch.profiler`` :func:`run_live` opens ``msm.stream`` around a
+call and ``msm.ingest`` around the capture's read and each batch the
+source yields; :meth:`StreamMatcher.feed_pcap_slice` opens ``msm.live.feed``
+around a feed, with ``msm.decode`` (``extract_payloads``) and
+``msm.live.filter`` (``bpf_protocol_mask``) inside it.  :data:`LIVE`
+counts the feeds, the frames fed and the frames the capture filter passed.
 """
 
 from __future__ import annotations
 
 import os
 import signal
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from multithreading_string_matching_tpu_torch.io.decode import bpf_protocol_mask, extract_payloads
+from multithreading_string_matching_tpu_torch.io.live import FileReplaySource
 from multithreading_string_matching_tpu_torch.io.pcap import PcapFile
 from multithreading_string_matching_tpu_torch.ops.scan import count_matches_ac
 from multithreading_string_matching_tpu_torch.ops.window import window_stream_chunk
 from multithreading_string_matching_tpu_torch.parallel import pipeline
+from multithreading_string_matching_tpu_torch.utils.timing import span
+
+# Feeds of :meth:`StreamMatcher.feed_pcap_slice` (``batches``), the frames
+# they held (``frames``) and those the capture filter passed (``passed``;
+# every frame of a feed without the filter).
+LIVE: Dict[str, int] = {"batches": 0, "frames": 0, "passed": 0}
 
 
 def patterns_npz_fields(patterns) -> dict:
@@ -330,34 +345,40 @@ class StreamMatcher:
         (packet_dumping.h:150-188), so an unfiltered scan can count matches
         inside non-TCP packets that the filter excludes, as the reference's
         filtered live program can differ from its own serial program."""
-        batch = extract_payloads(pcap, mode, keep_invalid=True)
-        src_idx = np.arange(pcap.num_packets, dtype=np.int64)
-        # extract_payloads pads to >= 1 row even for an EMPTY slice; rows
-        # past num_packets are padding.
-        payloads = batch.payloads[: src_idx.size]
-        lengths = batch.lengths[: src_idx.size]
-        if bpf_filter:
-            mask = bpf_protocol_mask(pcap, mode)
-            payloads, lengths = payloads[mask], lengths[mask]
-            src_idx = src_idx[mask]
-        if self.dump_writer is not None:
-            if payloads.shape[0] and self._tiles is not None:
-                # Rows ARE the slice's packets (keep_invalid=True), so per-row
-                # attribution maps straight back to records.  Batched.
-                self._dump_pending.append((pcap, src_idx, payloads, lengths))
-                self._dump_pending_rows += payloads.shape[0]
-                if self._dump_pending_rows >= self.dump_scan_rows:
-                    self._flush_dump()
-            elif payloads.shape[0]:
-                per_row = self._rows(payloads, lengths)
-                hits = per_row[: src_idx.size].sum(axis=1) > 0
-                self.dump_writer.write(pcap, src_idx[hits])
-            else:
-                # Lock the header to the capture's metadata even when the
-                # slice gave no payloads.
-                self.dump_writer.write(pcap, src_idx[:0])
-        if payloads.shape[0]:
-            self.feed_batch(payloads, lengths)
+        with span("msm.live.feed"):
+            with span("msm.decode"):
+                batch = extract_payloads(pcap, mode, keep_invalid=True)
+            src_idx = np.arange(pcap.num_packets, dtype=np.int64)
+            # extract_payloads pads to >= 1 row even for an EMPTY slice; rows
+            # past num_packets are padding.
+            payloads = batch.payloads[: src_idx.size]
+            lengths = batch.lengths[: src_idx.size]
+            if bpf_filter:
+                with span("msm.live.filter"):
+                    mask = bpf_protocol_mask(pcap, mode)
+                payloads, lengths = payloads[mask], lengths[mask]
+                src_idx = src_idx[mask]
+            LIVE["batches"] += 1
+            LIVE["frames"] += pcap.num_packets
+            LIVE["passed"] += src_idx.size
+            if self.dump_writer is not None:
+                if payloads.shape[0] and self._tiles is not None:
+                    # Rows ARE the slice's packets (keep_invalid=True), so per-row
+                    # attribution maps straight back to records.  Batched.
+                    self._dump_pending.append((pcap, src_idx, payloads, lengths))
+                    self._dump_pending_rows += payloads.shape[0]
+                    if self._dump_pending_rows >= self.dump_scan_rows:
+                        self._flush_dump()
+                elif payloads.shape[0]:
+                    per_row = self._rows(payloads, lengths)
+                    hits = per_row[: src_idx.size].sum(axis=1) > 0
+                    self.dump_writer.write(pcap, src_idx[hits])
+                else:
+                    # Lock the header to the capture's metadata even when the
+                    # slice gave no payloads.
+                    self.dump_writer.write(pcap, src_idx[:0])
+            if payloads.shape[0]:
+                self.feed_batch(payloads, lengths)
 
     def _rows(self, payloads, lengths) -> np.ndarray:
         """int32[n, P] per-row counts through the per-row kernels."""
@@ -447,3 +468,43 @@ class StreamMatcher:
     def tiles_dispatched(self) -> int:
         """Packed-mode launches (0 when unpacked): tiles, not batches."""
         return self._tiles.tiles_dispatched if self._tiles is not None else 0
+
+
+def run_live(stream: StreamMatcher, source, mode: str = "udp", *,
+             between: Optional[Callable[[StreamMatcher], None]] = None) -> None:
+    """The live program's loop (live_openmp_task.c:142-241): every batch of
+    ``source`` through ``stream`` behind the capture filter
+    (``feed_pcap_slice(..., bpf_filter=True)``, so ``packets_seen`` counts
+    what the filter passed) until the source ends or ``stream.stopped``
+    is set, then :meth:`StreamMatcher.flush` (the partial tile and the
+    pending dump scan), also when the loop raises.  Counts stay on the
+    stream (:meth:`StreamMatcher.counts`).
+
+    ``source`` iterates :class:`PcapFile` batches (``io.live.LiveSource``,
+    ``FileReplaySource``, or a prefetch iterator over one), or is the path
+    of a capture, read here and replayed in batches of
+    ``stream.batch_size``.  ``between(stream)`` runs before each batch is
+    fed (the CLI's SIGHUP reload).  A stop after a feed calls the source's
+    ``stop`` where it has one; a prefetch iterator has none, and its
+    source is stopped by the SIGINT handler
+    (:meth:`StreamMatcher.install_sigint`)."""
+    with span("msm.stream"):
+        if isinstance(source, (str, bytes, os.PathLike)):
+            with span("msm.ingest"):
+                source = FileReplaySource(source, batch_size=stream.batch_size)
+        batches = iter(source)
+        try:
+            while True:
+                with span("msm.ingest"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                if between is not None:
+                    between(stream)
+                stream.feed_pcap_slice(batch, mode, bpf_filter=True)
+                if stream.stopped:
+                    if hasattr(source, "stop"):
+                        source.stop()
+                    break
+        finally:
+            stream.flush()
