@@ -38,9 +38,13 @@ loop, :func:`run_live` (what ``live`` runs), checks
 Under ``torch.profiler`` :func:`run_live` opens ``msm.stream`` around a
 call and ``msm.ingest`` around the capture's read and each batch the
 source yields; :meth:`StreamMatcher.feed_pcap_slice` opens ``msm.live.feed``
-around a feed, with ``msm.decode`` (``extract_payloads``) and
-``msm.live.filter`` (``bpf_protocol_mask``) inside it.  :data:`LIVE`
-counts the feeds, the frames fed and the frames the capture filter passed.
+around a feed.  Inside it, an Ethernet feed (the walk's library loaded)
+opens ``msm.decode`` around the one native walk (``io/live_walk.walk``: the
+capture filter, the decode and the gather together); any other feed opens
+``msm.decode`` around ``extract_payloads`` and, behind the capture filter,
+``msm.live.filter`` around ``bpf_protocol_mask``.  :data:`LIVE` counts the
+feeds, the frames fed, the frames the capture filter passed and the feeds
+that took the walk.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from multithreading_string_matching_tpu_torch.io import live_walk
 from multithreading_string_matching_tpu_torch.io.decode import bpf_protocol_mask, extract_payloads
 from multithreading_string_matching_tpu_torch.io.live import FileReplaySource
 from multithreading_string_matching_tpu_torch.io.pcap import PcapFile
@@ -61,9 +66,10 @@ from multithreading_string_matching_tpu_torch.parallel import pipeline
 from multithreading_string_matching_tpu_torch.utils.timing import span
 
 # Feeds of :meth:`StreamMatcher.feed_pcap_slice` (``batches``), the frames
-# they held (``frames``) and those the capture filter passed (``passed``;
-# every frame of a feed without the filter).
-LIVE: Dict[str, int] = {"batches": 0, "frames": 0, "passed": 0}
+# they held (``frames``), those the capture filter passed (``passed``;
+# every frame of a feed without the filter) and the feeds that took the
+# one native header walk (``walked``).
+LIVE: Dict[str, int] = {"batches": 0, "frames": 0, "passed": 0, "walked": 0}
 
 
 def patterns_npz_fields(patterns) -> dict:
@@ -346,24 +352,31 @@ class StreamMatcher:
         inside non-TCP packets that the filter excludes, as the reference's
         filtered live program can differ from its own serial program."""
         with span("msm.live.feed"):
-            with span("msm.decode"):
-                batch = extract_payloads(pcap, mode, keep_invalid=True)
-            src_idx = np.arange(pcap.num_packets, dtype=np.int64)
-            # extract_payloads pads to >= 1 row even for an EMPTY slice; rows
-            # past num_packets are padding.
-            payloads = batch.payloads[: src_idx.size]
-            lengths = batch.lengths[: src_idx.size]
-            if bpf_filter:
-                with span("msm.live.filter"):
-                    mask = bpf_protocol_mask(pcap, mode)
-                payloads, lengths = payloads[mask], lengths[mask]
-                src_idx = src_idx[mask]
+            if live_walk.applies(pcap):
+                # One native walk decides the filter bit and the payload of
+                # each frame and gathers the kept rows into a fresh matrix.
+                with span("msm.decode"):
+                    payloads, lengths, src_idx = live_walk.walk(pcap, mode, bpf_filter)
+                LIVE["walked"] += 1
+            else:
+                with span("msm.decode"):
+                    batch = extract_payloads(pcap, mode, keep_invalid=True)
+                src_idx = np.arange(pcap.num_packets, dtype=np.int64)
+                # extract_payloads pads to >= 1 row even for an EMPTY slice;
+                # rows past num_packets are padding.
+                payloads = batch.payloads[: src_idx.size]
+                lengths = batch.lengths[: src_idx.size]
+                if bpf_filter:
+                    with span("msm.live.filter"):
+                        mask = bpf_protocol_mask(pcap, mode)
+                    payloads, lengths = payloads[mask], lengths[mask]
+                    src_idx = src_idx[mask]
             LIVE["batches"] += 1
             LIVE["frames"] += pcap.num_packets
             LIVE["passed"] += src_idx.size
             if self.dump_writer is not None:
                 if payloads.shape[0] and self._tiles is not None:
-                    # Rows ARE the slice's packets (keep_invalid=True), so per-row
+                    # A row for every frame that entered (src_idx), so per-row
                     # attribution maps straight back to records.  Batched.
                     self._dump_pending.append((pcap, src_idx, payloads, lengths))
                     self._dump_pending_rows += payloads.shape[0]

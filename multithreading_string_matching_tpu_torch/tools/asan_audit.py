@@ -1,4 +1,4 @@
-"""Memory-safety audit of the C++ ingest, driven through the port's ctypes layer.
+"""Memory-safety audit of the C++ ingest and the live walk, through the port's ctypes layer.
 
 Counterpart of ``bench/asan_audit.py``::
 
@@ -35,7 +35,17 @@ the Python binary is not instrumented), swaps the library into
    ``OverflowError`` are the only outcomes allowed besides a parse;
 3. geometry: ``--geometry-cases`` random ``decode``, ``fill_padded``,
    ``pack`` and ``scatter_segments`` calls (offsets and lengths inside the
-   buffer, as the parser guarantees; origlens that lie about the wire).
+   buffer, as the parser guarantees; origlens that lie about the wire);
+4. the live walk (``io/live_walk.py`` over the package's own
+   ``native/live_walk.cpp``, built the same way into
+   ``build/libmsm_live_walk_asan.so``): ``--geometry-cases`` rounds of
+   random truncated and lying Ethernet frames (IPv4 with any IHL, IPv6 and
+   its fragment header, ARP, VLAN, noise; caplens cut anywhere, origlens
+   that lie), in both modes, behind the capture filter and not: over one
+   shared buffer, held to the numpy walks row for row; frame by frame, each
+   in a buffer of exactly its captured bytes, so a read past a caplen is a
+   read past the buffer; and with offsets and caplens that point past the
+   buffer, which the walk clips.
 
 Any ASan or UBSan finding aborts the process: the run exits non-zero.  A
 clean run ends with ``ASAN AUDIT CLEAN``.  ``--self-test`` makes one
@@ -59,11 +69,13 @@ import time
 
 import numpy as np
 
-from multithreading_string_matching_tpu_torch.io import native
-from multithreading_string_matching_tpu_torch.io.pcap import INGEST
+from multithreading_string_matching_tpu_torch.io import live_walk, native
+from multithreading_string_matching_tpu_torch.io.decode import bpf_protocol_mask, extract_payloads
+from multithreading_string_matching_tpu_torch.io.pcap import INGEST, PcapFile
 from multithreading_string_matching_tpu_torch.ops._build import BUILD_DIR, PKG_DIR, compile_to, is_stale
 
 SO = BUILD_DIR / "libmsm_ingest_asan.so"
+WALK_SO = BUILD_DIR / "libmsm_live_walk_asan.so"
 CAPTURES = 25  # structured classic captures, and as many pcapng ones
 CHILD = "MSM_ASAN_AUDIT_CHILD"
 FLAGS = ["g++", "-O1", "-g", "-shared", "-fPIC", "-fsanitize=address,undefined",
@@ -71,9 +83,12 @@ FLAGS = ["g++", "-O1", "-g", "-shared", "-fPIC", "-fsanitize=address,undefined",
 
 
 def build() -> pathlib.Path:
-    """The sanitized ingest library, rebuilt when the source is newer."""
+    """The sanitized ingest and walk libraries, each rebuilt when its
+    source is newer; returns the ingest's."""
     if is_stale(SO, [native._SRC]):
         compile_to(FLAGS, [native._SRC], SO)
+    if is_stale(WALK_SO, [live_walk.SRC]):
+        compile_to(FLAGS, [live_walk.SRC], WALK_SO)
     return SO
 
 
@@ -92,13 +107,18 @@ def reexec(argv) -> None:
 
 
 def swap_in(path: pathlib.Path) -> ctypes.CDLL:
-    """Load the sanitized library and make it the one ``io.native`` calls."""
+    """Load the sanitized libraries and make them the ones ``io.native``
+    and ``io.live_walk`` call; returns the ingest's."""
     lib = ctypes.CDLL(str(path))
     native._bind(lib)
     native._lib = lib
     native._tried = True
     if not native.available():
         raise RuntimeError("io.native did not take the sanitized library")
+    walk_lib = ctypes.CDLL(str(WALK_SO))
+    live_walk.bind(walk_lib)
+    live_walk._lib = walk_lib
+    live_walk._tried = True
     return lib
 
 
@@ -380,6 +400,87 @@ def geometry_fuzz(rng, cases: int) -> int:
     return cases
 
 
+def lying_frame(rng) -> bytes:
+    """An Ethernet frame of random bytes whose header fields are drawn to
+    reach every branch of the walk: IPv4 with any IHL and protocol (and a
+    TCP data offset where the frame reaches it), IPv6 with its next header
+    and a fragment header's, ARP, a VLAN tag, or any ethertype."""
+    fr = bytearray(rng.integers(0, 256, int(rng.integers(0, 140))).astype(np.uint8).tobytes())
+    fr = bytearray(14) + fr
+    et = int(rng.choice([0x0800, 0x0800, 0x86DD, 0x0806, 0x8100, int(rng.integers(0, 65536))]))
+    fr[12:14] = et.to_bytes(2, "big")
+    if et == 0x0800 and len(fr) > 23:
+        fr[14] = 0x40 | int(rng.integers(0, 16))
+        fr[23] = int(rng.choice([17, 6, 1, int(rng.integers(0, 256))]))
+        doff = 14 + (fr[14] & 0x0F) * 4 + 12
+        if doff < len(fr):
+            fr[doff] = int(rng.integers(0, 16)) << 4
+    elif et == 0x86DD and len(fr) > 20:
+        fr[20] = int(rng.choice([17, 6, 44, 58]))
+        if len(fr) > 54:
+            fr[54] = int(rng.choice([17, 6, 58]))
+    return bytes(fr)
+
+
+def _capture(frames, caplens, origlens) -> PcapFile:
+    """A capture of ``frames`` cut at ``caplens``: their captured bytes laid
+    end to end in a fresh numpy buffer of exactly that many bytes."""
+    caps = np.asarray(caplens, np.int64)
+    data = b"".join(fr[:c] for fr, c in zip(frames, caps.tolist()))
+    buf = np.empty(len(data), np.uint8)
+    buf[:] = np.frombuffer(data, np.uint8)
+    z = np.zeros(caps.size, np.int64)
+    return PcapFile(buf=buf, offsets=np.cumsum(caps) - caps, caplens=caps,
+                    origlens=np.asarray(origlens, np.int64), ts_sec=z, ts_frac=z,
+                    linktype=1, snaplen=65535, nanos=False)
+
+
+def _walk_equals_spec(pcap: PcapFile, mode: str, bpf_filter: bool) -> None:
+    """Raise unless the walk's rows are the numpy walks' rows."""
+    batch = extract_payloads(pcap, mode, keep_invalid=True)
+    n = pcap.num_packets
+    lengths, src_idx, want = batch.lengths[:n], np.arange(n), batch.payloads[:n]
+    if bpf_filter:
+        mask = bpf_protocol_mask(pcap, mode)
+        lengths, src_idx, want = lengths[mask], src_idx[mask], want[mask]
+    got, got_l, got_i = live_walk.walk(pcap, mode, bpf_filter)
+    if not (np.array_equal(got_l, lengths) and np.array_equal(got_i, src_idx)):
+        raise AssertionError(f"live walk ({mode}, filter={bpf_filter}): lengths or indices differ")
+    for r, ln in enumerate(lengths.tolist()):
+        if not np.array_equal(got[r, :ln], want[r, :ln]) or got[r, ln:].any():
+            raise AssertionError(f"live walk ({mode}, filter={bpf_filter}): row {r} differs")
+
+
+def walk_fuzz(rng, cases: int) -> int:
+    """``cases`` rounds of the live walk over up to 30 lying frames, as part
+    4 of the module docstring says."""
+    for _ in range(cases):
+        n = int(rng.integers(0, 30))
+        frames = [lying_frame(rng) for _ in range(n)]
+        caps = [int(rng.integers(0, len(fr) + 1)) if rng.integers(3) == 0 else len(fr)
+                for fr in frames]
+        origs = [int(rng.choice([len(fr), rng.integers(0, 60), len(fr) + rng.integers(0, 300)]))
+                 for fr in frames]
+        pcap = _capture(frames, caps, origs)
+        for mode in ("udp", "tcp"):
+            for bpf_filter in (True, False):
+                _walk_equals_spec(pcap, mode, bpf_filter)
+                for i in range(n):
+                    live_walk.walk(_capture(frames[i:i + 1], caps[i:i + 1], origs[i:i + 1]),
+                                   mode, bpf_filter)
+        # Index arrays that point past the buffer: the walk clips them.
+        if n:
+            nbytes = pcap.buf.size
+            lying = PcapFile(
+                buf=pcap.buf, offsets=rng.integers(-5, nbytes + 50, n).astype(np.int64),
+                caplens=rng.integers(-5, 400, n).astype(np.int64),
+                origlens=np.asarray(origs, np.int64), ts_sec=pcap.ts_sec, ts_frac=pcap.ts_frac,
+                linktype=1, snaplen=65535, nanos=False)
+            live_walk.walk(lying, "udp", bool(rng.integers(2)))
+            live_walk.walk(lying, "tcp", bool(rng.integers(2)))
+    return cases
+
+
 def self_test(lib: ctypes.CDLL) -> None:
     """One out-of-bounds read through the raw entry: ``msm_fill_padded``
     copies 8,192 bytes out of a 4,096-byte buffer.  Under ASan the process
@@ -424,6 +525,8 @@ def main(argv=None) -> int:
     geometry_fuzz(rng, args.geometry_cases)
     print(f"decode/fill/pack/scatter fuzz clean under ASan: {args.geometry_cases} cases",
           flush=True)
+    walk_fuzz(rng, args.geometry_cases)
+    print(f"live walk fuzz clean under ASan: {args.geometry_cases} cases", flush=True)
     print(f"ASAN AUDIT CLEAN (seed {args.seed}, {time.perf_counter() - t0:.1f} s)")
     return 0
 

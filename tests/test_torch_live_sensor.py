@@ -11,13 +11,17 @@ on the benchmark's ``udp_b10`` mix, held to the benchmark's plain reference
 - a stop after a feed ends the loop there, stops the source, and what was
   fed is counted; ``between`` runs before each batch;
 - under ``torch.profiler`` a pass opens one ``msm.stream`` and the live
-  path's spans; ``LIVE["batches"]`` counts the feeds;
+  path's spans: on an Ethernet capture one ``msm.decode`` a feed around the
+  native walk and no ``msm.live.filter``; on the fallback (a raw-IP
+  capture, ``MSM_NO_NATIVE=1``) the decode and the filter span a feed;
+  ``LIVE["batches"]`` counts the feeds and ``LIVE["walked"]`` those walked;
 - ``live`` runs its loop through ``run_live``;
 - the ``live_sensor.udp_b10`` cell runs on the CPU at a small size and is
   correct, and not correct when one feed in ten is dropped;
-- the cell's three readers on canned traces and probes, and its packing
-  reader, whose self time (``gpubench/metrics/_nested.py``) equals the
-  stream cells' on canned and profiled traces.
+- the cell's readers on canned traces and probes (the walk's share among
+  them), and its packing reader, whose self time
+  (``gpubench/metrics/_nested.py``) equals the stream cells' on canned and
+  profiled traces.
 
 Counts are integers and compared exactly; the file imports no JAX.  The
 test marked ``gpu`` runs only on the card::
@@ -41,6 +45,7 @@ from gpubench.reference.udp_packets import capture_counts
 from gpubench.tests.test_faults import break_stream
 from multithreading_string_matching_tpu_torch.api import Matcher
 from multithreading_string_matching_tpu_torch.cli import main as pt_main
+from multithreading_string_matching_tpu_torch.io import live_walk, native
 from multithreading_string_matching_tpu_torch.io.live import FileReplaySource
 from multithreading_string_matching_tpu_torch.parallel import stream as pt_stream
 
@@ -53,8 +58,10 @@ CELL = "live_sensor.udp_b10"
 PACKETS = 3000
 SEED = 2**31 + 2626
 ARGS = registry.traffic("udp_b10")["entry_args"]
-LIVE_SPANS = ("msm.stream", "msm.ingest", "msm.live.feed", "msm.live.filter", "msm.decode",
-              "msm.pack", "msm.stage.dispatch")
+LIVE_SPANS = ("msm.stream", "msm.ingest", "msm.live.feed", "msm.decode", "msm.pack",
+              "msm.stage.dispatch")
+SPAN_READERS = ("ingest_ms_per_MB.live", "decode_ms_per_MB.live", "pack_ms_per_MB.live",
+                "live_filter_ms_per_MB.live", "live_feed_ms_per_MB.live")
 
 
 def stream_of(matcher, batch=ARGS["batch_packets"], tile_rows=ARGS["tile_rows"],
@@ -89,9 +96,9 @@ def records(path):
     return out
 
 
-def write_frames(path, frames):
+def write_frames(path, frames, linktype=1):
     with open(path, "wb") as f:
-        f.write(classic_global_header())
+        f.write(classic_global_header(linktype))
         for i, fr in enumerate(frames):
             f.write(struct.pack("<IIII", i, 0, len(fr), len(fr)) + fr)
     return path
@@ -193,15 +200,16 @@ def test_a_stop_after_a_feed_ends_the_loop_and_counts_what_was_fed(capture, tmp_
     np.testing.assert_array_equal(sm.counts(), capture_counts(part, PATTERNS, "udp")[0])
 
 
-def test_spans_open_under_the_profiler_and_live_counts_the_feeds(capture, tmp_path):
-    path, nbytes, want, _ = capture
-    batch = 7
+def profiled_pass(path, tmp_path, batch=7):
+    """``run_live`` over ``path`` under the profiler, at ``batch`` frames a
+    feed into 16-row tiles: the stream, its Chrome trace's events (written
+    into ``tmp_path``), the spans by name, and what ``LIVE`` counted."""
     before = dict(pt_stream.LIVE)
     sm = stream_of(cpu_matcher(), batch, 16, 256)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with torch.profiler.record_function(trace.PASS_SPAN):
             pt_stream.run_live(sm, path, "udp")
-    np.testing.assert_array_equal(sm.counts(), want)
+    fed = {k: pt_stream.LIVE[k] - before[k] for k in before}
     out = tmp_path / "trace.json"
     prof.export_chrome_trace(str(out))
     events = json.loads(out.read_text())["traceEvents"]
@@ -209,34 +217,77 @@ def test_spans_open_under_the_profiler_and_live_counts_the_feeds(capture, tmp_pa
     for e in events:
         if e.get("ph") == "X" and e.get("cat") == "user_annotation":
             spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    return sm, events, spans, fed
+
+
+def assert_feeds_hold(spans, names):
+    """Each span of ``names`` lies inside one ``msm.live.feed``."""
+    feeds_iv = sorted(spans["msm.live.feed"])
+    for name in names:
+        for a, b in spans[name]:
+            i = np.searchsorted([f[0] for f in feeds_iv], a, side="right") - 1
+            assert feeds_iv[i][0] <= a and b <= feeds_iv[i][1], name
+
+
+def test_spans_open_under_the_profiler_and_live_counts_the_feeds(capture, tmp_path):
+    path, nbytes, want, _ = capture
+    batch = 7
+    sm, events, spans, fed = profiled_pass(path, tmp_path, batch)
+    np.testing.assert_array_equal(sm.counts(), want)
     feeds = -(-PACKETS // batch)
-    fed = {k: pt_stream.LIVE[k] - before[k] for k in before}
-    assert fed == {"batches": feeds, "frames": PACKETS, "passed": PACKETS}
-    assert set(LIVE_SPANS) <= set(spans)
+    # Every feed of an Ethernet capture takes the one native walk.
+    assert fed == {"batches": feeds, "frames": PACKETS, "passed": PACKETS, "walked": feeds}
+    assert set(LIVE_SPANS) <= set(spans) and "msm.live.filter" not in spans
     assert len(spans["msm.stream"]) == 1
     # The capture's read, each batch, and the read that finds the end.
     assert len(spans["msm.ingest"]) == feeds + 2
-    assert len(spans["msm.live.feed"]) == len(spans["msm.live.filter"]) == feeds
+    assert len(spans["msm.live.feed"]) == feeds
     assert len(spans["msm.decode"]) == len(spans["msm.pack"]) == feeds
     assert len(spans["msm.stage.dispatch"]) == sm.tiles_dispatched
     (s0, s1), = spans["msm.stream"]
     assert all(s0 <= a and b <= s1 for name, iv in spans.items()
                if name not in ("msm.stream", trace.PASS_SPAN) for a, b in iv)
-    # Each feed holds its decode, filter and packing.
-    feeds_iv = sorted(spans["msm.live.feed"])
-    for name in ("msm.decode", "msm.live.filter", "msm.pack"):
-        for a, b in spans[name]:
-            i = np.searchsorted([f[0] for f in feeds_iv], a, side="right") - 1
-            assert feeds_iv[i][0] <= a and b <= feeds_iv[i][1], name
+    # Each feed holds its walk and its packing.
+    assert_feeds_hold(spans, ("msm.decode", "msm.pack"))
     # The live cell's span readers read this trace; the fast self time is
-    # the stream cells' own number.
+    # the stream cells' own number.  No filter span: its reader is silent.
     rec = trace.reduce_events(events)
-    rec.update(traced_payload_bytes=nbytes)
+    rec.update(traced_payload_bytes=nbytes, probes={"live": fed})
     for name in ("msm.pack", "msm.live.feed", "msm.stream", "msm.stage.dispatch"):
         assert _nested.self_ms(rec, name) == _spans.self_ms(rec, name) > 0, name
-    for metric in ("ingest_ms_per_MB.live", "decode_ms_per_MB.live", "pack_ms_per_MB.live",
-                   "live_filter_ms_per_MB.live", "live_feed_ms_per_MB.live"):
+    for metric in SPAN_READERS:
+        got = registry.reader(metric).read(rec)
+        assert (got is None) if metric == "live_filter_ms_per_MB.live" else got > 0, metric
+    assert registry.reader("live_walk_share.live").read(rec) == 100.0
+
+
+@pytest.mark.parametrize("fallback", ["raw-ip", "no-native"])
+def test_the_fallback_opens_the_filter_span_a_feed_and_walks_nothing(capture, tmp_path,
+                                                                    monkeypatch, fallback):
+    """A raw-IP capture, or ``MSM_NO_NATIVE=1``, keeps the two numpy walks:
+    ``msm.decode`` and ``msm.live.filter`` once a feed, ``walked`` at 0."""
+    path, nbytes, want, _ = capture
+    batch = 7
+    if fallback == "raw-ip":
+        path = write_frames(tmp_path / "raw.pcap", [fr[14:] for fr in records(path)],
+                            linktype=101)
+    else:
+        monkeypatch.setenv("MSM_NO_NATIVE", "1")
+        for mod in (live_walk, native):
+            monkeypatch.setattr(mod, "_lib", None)
+            monkeypatch.setattr(mod, "_tried", False)
+    sm, events, spans, fed = profiled_pass(path, tmp_path, batch)
+    np.testing.assert_array_equal(sm.counts(), want)
+    feeds = -(-PACKETS // batch)
+    assert fed == {"batches": feeds, "frames": PACKETS, "passed": PACKETS, "walked": 0}
+    assert len(spans["msm.live.feed"]) == len(spans["msm.live.filter"]) == feeds
+    assert len(spans["msm.decode"]) == len(spans["msm.pack"]) == feeds
+    assert_feeds_hold(spans, ("msm.decode", "msm.live.filter", "msm.pack"))
+    rec = trace.reduce_events(events)
+    rec.update(traced_payload_bytes=nbytes, probes={"live": fed})
+    for metric in SPAN_READERS:
         assert registry.reader(metric).read(rec) > 0, metric
+    assert registry.reader("live_walk_share.live").read(rec) == 0.0
 
 
 def test_live_runs_its_loop_through_run_live(capture, capsys, monkeypatch):
@@ -354,6 +405,20 @@ def test_the_packing_reader_reads_the_stream_cells_number():
     assert live.read(records_of(FEEDS, request=False)) is None
     for name in ("msm.live.feed", "msm.pack", "msm.stream", "msm.live.filter"):
         assert _nested.self_ms(rec, name) == _spans.self_ms(rec, name)
+
+
+def test_walk_share_reader_reads_the_live_probe():
+    """``live_walk_share.live``: 100 x ``walked`` / ``batches``; nothing to
+    read from a probe without ``walked`` (a program without the walk)."""
+    reader = registry.reader("live_walk_share.live")
+    live = {"batches": 10_000, "frames": 100_000, "passed": 99_990, "walked": 10_000}
+    assert reader.read(records_of([], probes={"live": live})) == 100.0
+    assert reader.read(records_of([], probes={"live": dict(live, walked=2_500)})) == 25.0
+    assert reader.read(records_of([], probes={"live": dict(live, walked=0)})) == 0.0
+    parent = {k: v for k, v in live.items() if k != "walked"}
+    assert reader.read(records_of([], probes={"live": parent})) is None
+    assert reader.read(records_of([], probes={})) is None
+    assert reader.read(records_of([], probes={"live": dict(live, batches=0)})) is None
 
 
 def test_frames_reader_reads_the_live_probe():

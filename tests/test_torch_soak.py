@@ -240,8 +240,9 @@ def test_differential_edges_command():
 
 
 def test_asan_audit_clean(tmp_path):
-    """The port's ingest bindings under ASan and UBSan at a test size: the
-    structured captures, 200 garbage blobs, 50 geometry rounds."""
+    """The port's ingest bindings and the live walk under ASan and UBSan at
+    a test size: the structured captures, 200 garbage blobs, 50 geometry
+    rounds, 50 rounds of the walk."""
     r = subprocess.run([sys.executable, "-m",
                         "multithreading_string_matching_tpu_torch.tools.asan_audit",
                         "--garbage-cases", "200", "--geometry-cases", "50"],
@@ -249,6 +250,7 @@ def test_asan_audit_clean(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     assert "ASAN AUDIT CLEAN" in r.stdout
     assert "structured captures clean under ASan: 50 captures" in r.stdout
+    assert "live walk fuzz clean under ASan: 50 cases" in r.stdout
     # Both ingest paths walked: a path to a classic capture maps it, a file
     # object reads it.
     counts = re.search(r"iter_pcap batches mapped (\d+), read (\d+)", r.stdout)
