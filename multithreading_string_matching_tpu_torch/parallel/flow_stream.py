@@ -59,10 +59,16 @@ fed, flushed and counted.  Under ``torch.profiler`` it opens the spans of
 of the chunk iterator), ``msm.flow.feed`` (each :meth:`feed_pcap_slice`,
 rounds included), ``msm.flow.layout`` (a round: tails, sub-lanes or the
 ``ac`` engine's padded lanes, fold, the find pass with ``collect_offsets``),
-inside it ``msm.flow.dispatch`` (a launch's or a chunk's copies and launch) and
+inside it ``msm.flow.reorder`` (with ``reorder``: the round's held segments
+put in sequence order and trimmed, :meth:`_materialize_reorder`),
+``msm.flow.dispatch`` (a launch's or a chunk's copies and launch) and
 ``msm.drain`` (device counts or states fetched to the host).
 :data:`FLOWS` counts the rounds' stream and tile bytes and the feeds'
-payload segments, those the grouped feed moved among them.
+payload segments, those the grouped feed moved among them; with
+``reorder`` also the segments and raw bytes held with their seq
+(``reorder_segments``, ``reorder_held_bytes``), the segments a round placed
+ahead of an earlier capture (``reorder_moved``) and the bytes it dropped as
+already given (``reorder_trimmed_bytes``).
 """
 
 from __future__ import annotations
@@ -95,8 +101,14 @@ from multithreading_string_matching_tpu_torch.utils.timing import span
 # padding and padding lanes included); their ratio is the rounds' lane
 # fill.  Payload segments fed (``feed_segments``) and those the grouped
 # feed moved (``grouped_segments``); their ratio is the share it takes.
+# With ``reorder`` only: payload segments held with their seq
+# (``reorder_segments``) and their raw bytes (``reorder_held_bytes``);
+# segments a round placed ahead of a segment of their flow captured before
+# them (``reorder_moved``); bytes a round dropped as already given, in its
+# own overlaps or behind an earlier round's edge (``reorder_trimmed_bytes``).
 FLOWS: Dict[str, int] = {"real_bytes": 0, "tile_bytes": 0, "feed_segments": 0,
-                         "grouped_segments": 0}
+                         "grouped_segments": 0, "reorder_segments": 0, "reorder_moved": 0,
+                         "reorder_held_bytes": 0, "reorder_trimmed_bytes": 0}
 
 
 def _pow2(x: int, floor: int) -> int:
@@ -236,6 +248,9 @@ class FlowStreamMatcher:
         segs = np.flatnonzero(valid & (ln > 0))
         nbytes = int(ln[segs].sum())
         FLOWS["feed_segments"] += segs.size
+        if seqs is not None:
+            FLOWS["reorder_segments"] += segs.size
+            FLOWS["reorder_held_bytes"] += nbytes
         if seqs is None and segs.size and segs.size >= self.GROUP_MIN_SEGMENTS:
             self._feed_grouped(pcap.buf, keys[segs], pcap.offsets[segs] + off[segs], ln[segs])
             FLOWS["grouped_segments"] += segs.size
@@ -303,7 +318,10 @@ class FlowStreamMatcher:
     def _materialize_reorder(self) -> None:
         """Turn each flow's pending (seq, bytes) segments into the flat bytes
         a round scans: sequence order, first bytes win against the flow's
-        carried coverage (io.flows.reorder_plan within the round)."""
+        carried coverage (io.flows.reorder_plan within the round).  Counts
+        into ``FLOWS`` the segments placed ahead of one captured before
+        them and the bytes dropped as already given."""
+        moved = trimmed = 0
         for k, segs in list(self._pending.items()):
             if not isinstance(segs, list):
                 continue
@@ -317,6 +335,11 @@ class FlowStreamMatcher:
                 base, covered = st
             rels = [((sq - base + 2**31) % 2**32 - 2**31) for sq, _ in segs]
             order = sorted(range(len(segs)), key=lambda i: (rels[i], i))
+            if order != list(range(len(segs))):
+                low = len(segs)  # the earliest capture placed after this one
+                for i in reversed(order):
+                    moved += i > low
+                    low = min(low, i)
             out = bytearray()
             for i in order:
                 r, b = rels[i], segs[i][1]
@@ -334,6 +357,9 @@ class FlowStreamMatcher:
             self._flow_reorder[k] = ((base + covered) % 2**32, 0)
             self._pending_bytes += len(out) - raw
             self._pending[k] = out
+            trimmed += raw - len(out)
+        FLOWS["reorder_moved"] += moved
+        FLOWS["reorder_trimmed_bytes"] += trimmed
 
     def _scan(self) -> None:
         had_bytes = self._pending_bytes > 0
@@ -439,7 +465,8 @@ class FlowStreamMatcher:
             self._pending.clear()
             return
         if self.reorder:
-            self._materialize_reorder()
+            with span("msm.flow.reorder"):
+                self._materialize_reorder()
             if not self._pending_bytes:  # everything was retransmission
                 self._pending.clear()
                 return
